@@ -12,9 +12,19 @@ Phases, in order; any failed check exits non-zero:
      (seed 0, 256 clusters, 8192 queries, ground truth on the card),
      build + finalize, one warm and 5 timed search_batch(k=10), recall@10
      >= 0.99 through the kernel; then a 100k x 128d 4-bit drive;
-  5. save -> load round trip into a fresh CPIndex: equal ids.
-The last lines are the kernels' JSON, the card's name and power limit as
-nvidia-smi reports them, and the result JSON.
+  5. save -> load round trip into a fresh CPIndex: equal ids;
+  6. the graph drive: CPIndex(128, bits=1, engine="graph") on the same 1M x
+     128d data, build + finalize (seconds per stage), one warm and 5 timed
+     search_batch(k=10) on the first 1024 queries, recall@10 >= 0.90, the
+     beam steps and ms per step (CUDA events);
+  7. a 100k x 128d 4-bit graph drive (the MSB two-stage bound), recall@10
+     >= 0.90, then save -> load into a fresh CPIndex: equal ids;
+  8. torch.profiler over one warm 1M graph batch: device-busy share, the
+     five kernels with the most device time, launches per beam step.
+The graph path has no hand-written kernel (the JAX package's Pallas
+beam-step kernel was retired before the port); its device work is torch
+ops.  The last lines are the kernels' JSON, the card's name and power
+limit as nvidia-smi reports them, and the result JSON.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from cphnsw_tpu_torch import CPIndex
 from cphnsw_tpu_torch.kernels import scan_keys
 from cphnsw_tpu_torch.ops import hadamard, quantize
 from cphnsw_tpu_torch.search import scan
+from cphnsw_tpu_torch.utils import native
 from cphnsw_tpu_torch.utils.datasets import make_synthetic
 from cphnsw_tpu_torch.utils.eval import recall_at_k
 
@@ -41,6 +52,10 @@ N_MAIN, N_SMALL, DIM, N_QUERIES, K = 1_000_000, 100_000, 128, 8192, 10
 SUB_BATCH = 2048
 TIMED_RUNS = 5
 MIN_RECALL = 0.99
+# Graph drives: the lockstep beam's per-query cost does not depend on the
+# batch size, so 1024 queries measure it.
+GRAPH_QUERIES = 1024
+GRAPH_MIN_RECALL = 0.90
 
 
 def log(*args):
@@ -178,6 +193,102 @@ def drive(name, data, bits, card):
     return idx, ids
 
 
+def graph_drive(name, data, bits, card):
+    """Graph engine: build + finalize + warm + timed searches on the first
+    GRAPH_QUERIES queries; returns (index, queries, ids)."""
+    idx = CPIndex(DIM, bits=bits, engine="graph", device="cuda")
+    t0 = time.perf_counter()
+    idx.build(data["base"])
+    idx.finalize()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    g = idx._index
+    log(f"  {name}: build+finalize {build_s:.2f} s, stages "
+        f"{json.dumps(g.build_stages)}, step budget {g._step_budget}, "
+        f"graph stats {g._stats.to_dict()} [{card}]")
+    queries = data["queries"][:GRAPH_QUERIES]
+    ids, _ = idx.search_batch(queries, k=K)          # warm
+    lat = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        ids, dists = idx.search_batch(queries, k=K)  # ends on a host copy
+        lat.append(time.perf_counter() - t0)
+    p50 = statistics.median(lat)
+    recall = recall_at_k(ids, data["groundtruth"][:GRAPH_QUERIES], K)
+    log(f"  {name}: recall@{K}={recall:.4f} QPS={len(queries) / p50:.1f} "
+        f"p50 batch latency {p50 * 1e3:.2f} ms (Q={len(queries)}, "
+        f"batches {[round(x * 1e3, 2) for x in lat]} ms) [{card}]")
+    steps, ms = beam_steps(g, queries)
+    log(f"  {name}: beam steps run {steps} (budget {g._max_steps(K)}), "
+        f"{ms:.3f} ms per step, visited "
+        f"{'hash 2^%d slots' % g._visited_hash_bits() if g._visited_hash_bits() else 'dense'}"
+        f", sub-batch {g._sub_batch()} queries [{card}]")
+    if ids.shape != (len(queries), K) or not np.isfinite(dists).all():
+        fail(f"{name}: malformed result {ids.shape}")
+    if recall < GRAPH_MIN_RECALL:
+        fail(f"{name}: recall@{K} {recall} < {GRAPH_MIN_RECALL}")
+    return idx, queries, ids, p50
+
+
+def beam_steps(g, queries):
+    """(loop steps, ms per step) of one beam search over `queries`, timed
+    with CUDA events."""
+    q_dev = torch.from_numpy(queries).cuda()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, _, state = g._beam(q_dev, g._entry_candidates, K, g._max_steps(K),
+                          debug_state=True)
+    end.record()
+    torch.cuda.synchronize()
+    return state.steps, start.elapsed_time(end) / max(state.steps, 1)
+
+
+def profile_graph_batch(g, queries, p50, card):
+    """torch.profiler over one warm search_batch: device-busy time (the
+    union of kernel intervals) as a share of the profiled wall time and of
+    the unprofiled p50 batch latency, the five kernels with the most
+    device time, kernel launches per beam step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps, _ = beam_steps(g, queries)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        g.search_batch(queries, k=K)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        t = by_name.setdefault(e.name, [0.0, 0])
+        t[0] += e.time_range.end - e.time_range.start
+        t[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"[8] profile of one warm 1M graph batch (Q={len(queries)}): device "
+        f"busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f}% of the "
+        f"{wall_us / 1e3:.2f} ms profiled wall, "
+        f"{100 * busy / (p50 * 1e6):.1f}% of the {p50 * 1e3:.2f} ms "
+        f"unprofiled p50 batch; {len(kernels)} kernel launches over {steps} "
+        f"beam steps = {len(kernels) / max(steps, 1):.1f} per step [{card}]")
+    for name, (us, count) in top:
+        log(f"  {us / 1e3:9.3f} ms {count:6d} launches  {name[:110]}")
+    if not kernels:
+        log("  the profiler recorded no device kernels")
+
+
 def main():
     t_start = time.perf_counter()
     # 1. environment
@@ -258,6 +369,41 @@ def main():
             f"file {f.stat().st_size / 2**20:.1f} MiB")
     if not np.array_equal(ids, ids2):
         fail("ids after save -> load differ")
+    del idx, fresh
+    torch.cuda.empty_cache()
+
+    # 6. graph main drive
+    lib = native.load()
+    log(f"[6] graph drive: CPIndex(128, bits=1, engine='graph') on 1M x "
+        f"128d; host ops "
+        f"{'native C library loaded' if lib is not None else 'numpy fallback (no C library)'}")
+    scan_keys.launches = 0
+    gidx, gq, _, gp50 = graph_drive("graph 1M x 128d 1-bit", data, 1, card)
+    log(f"  scan_keys launches in the graph drive: {scan_keys.launches} "
+        f"(the graph path runs torch ops only)")
+
+    # 7. graph N-bit drive + save -> load
+    log("[7] graph drive: CPIndex(128, bits=4, engine='graph') on 100k x 128d")
+    scan_keys.launches = 0
+    sidx, sq, sids, _ = graph_drive("graph 100k x 128d 4-bit", small, 4,
+                                    card)
+    log(f"  scan_keys launches in the graph drive: {scan_keys.launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        f = Path(tmp) / "graph.npz"
+        t0 = time.perf_counter()
+        sidx.save(str(f))
+        fresh = CPIndex(DIM, bits=4, device="cuda")
+        fresh.load(str(f))
+        sids2, _ = fresh.search_batch(sq, k=K)
+        log(f"  save -> load -> search: {time.perf_counter() - t0:.1f} s, "
+            f"file {f.stat().st_size / 2**20:.1f} MiB, engine "
+            f"{fresh.engine}")
+    if fresh.engine != "graph" or not np.array_equal(sids, sids2):
+        fail("graph ids after save -> load differ")
+    del sidx, fresh
+
+    # 8. profile of the 1M graph batch
+    profile_graph_batch(gidx._index, gq, gp50, card)
 
     sk = results[0]
     kernels = [dict(

@@ -63,6 +63,20 @@ def unpack_planes(planes: torch.Tensor, padded_dim: int) -> torch.Tensor:
         dim=-2, dtype=torch.int32)
 
 
+def unpack_msb(planes: torch.Tensor, padded_dim: int,
+               bits: int) -> torch.Tensor:
+    """The MSB part of the codes for the two-stage N-bit bound: plane 0
+    alone (values 0/1) for bits < 2, else planes 0-1 as 2*p0 + p1 (values
+    0..3)."""
+    n_planes = 1 if bits < 2 else 2
+    return unpack_planes(planes[..., :n_planes, :], padded_dim)
+
+
+def weighted_popcount(u: torch.Tensor) -> torch.Tensor:
+    """sum_d u_d over the last axis, int32."""
+    return u.sum(dim=-1, dtype=torch.int32)
+
+
 def _unpack_codes_i8_flat(planes: torch.Tensor, padded_dim: int):
     bits = planes.shape[-2]
     x = _plane_bits(planes, padded_dim).to(torch.int8)

@@ -1,7 +1,8 @@
-"""RaBitQ / CAQ quantization: database codes and query encoding.
+"""RaBitQ / CAQ quantization: database codes, edge residuals, queries.
 
 PyTorch counterpart of ``cphnsw_tpu/ops/quantize.py`` (``compute_centroid``,
-``caq_quantize``, ``encode_vectors``, ``encode_queries``).  The CAQ
+``caq_quantize``, ``encode_vectors``, ``encode_residuals``,
+``encode_queries``).  The CAQ
 coordinate descent stays sequential over the P coordinates and parallel
 over the vector batch; its Python loop over coordinates replaces the JAX
 ``lax.scan``/``while_loop`` pair with the same update rule, the same
@@ -44,6 +45,13 @@ class EncodedVectors(NamedTuple):
     ip_qo: torch.Tensor   # (N,)  <c_bar, rotated>/sqrt(P)
 
 
+class EncodedResiduals(NamedTuple):
+    u: torch.Tensor       # (E, P) int32
+    nop: torch.Tensor     # (E,)  ||n - p||
+    ip_qo: torch.Tensor   # (E,)
+    ip_cp: torch.Tensor   # (E,)  <c_bar, rotated_parent>/sqrt(P)
+
+
 class QueryCode(NamedTuple):
     q_u: torch.Tensor      # (Q, P) int32 quantized query levels in [0, 15]
     coeff_a: torch.Tensor  # (Q,) 2*delta/sqrt(P)
@@ -80,22 +88,30 @@ def _center_normalize_rotate(vectors, centroid, signs):
     return rotated, nop, safe
 
 
-def caq_quantize(rotated: torch.Tensor, bits: int):
+def caq_quantize(rotated: torch.Tensor, bits: int,
+                 rotated_parent: torch.Tensor | None = None):
     """CAQ coordinate-descent quantization, batched over vectors.
 
     rotated: (V, P) rotated unit vectors.  Returns (u (V, P) int32,
-    ip_qo (V,)).  bits == 1 is exactly the sign code; bits 2-3 sweep all
-    K+1 levels per coordinate; bits >= 4 try +/-1 moves.
+    ip_qo (V,), ip_cp (V,) or None): ip_cp = <c_bar, rotated_parent>/sqrt(P)
+    when the rotated parents (V, P) of edge residuals are given.  bits == 1
+    is exactly the sign code; bits 2-3 sweep all K+1 levels per
+    coordinate; bits >= 4 try +/-1 moves.
     """
     v, p = rotated.shape
     k_int = (1 << bits) - 1
     k = float(k_int)
     inv_sqrt_p = _inv_sqrt(p)
 
+    def parent_ip(u):
+        if rotated_parent is None:
+            return None
+        return (_c_bar(u, bits) * rotated_parent).sum(dim=-1) * inv_sqrt_p
+
     if bits == 1:
         u = (rotated >= 0.0).to(torch.int32)
         ip_qo = (_c_bar(u, 1) * rotated).sum(dim=-1) * inv_sqrt_p
-        return u, ip_qo
+        return u, ip_qo, parent_ip(u)
 
     # LVQ uniform init
     vmin = rotated.amin(dim=-1, keepdim=True)
@@ -155,16 +171,38 @@ def caq_quantize(rotated: torch.Tensor, bits: int):
         if not (any_changed and improving):
             break
 
-    return codes_t.T.contiguous(), dot * inv_sqrt_p
+    u = codes_t.T.contiguous()
+    return u, dot * inv_sqrt_p, parent_ip(u)
 
 
 def encode_vectors(vectors, centroid, signs, bits: int) -> EncodedVectors:
     """Encode database vectors against the dataset centroid."""
     rotated, nop, safe = _center_normalize_rotate(vectors, centroid, signs)
-    u, ip_qo = caq_quantize(rotated, bits)
+    u, ip_qo, _ = caq_quantize(rotated, bits)
     u = torch.where(safe[:, None], u, 0)
     ip_qo = torch.where(safe, ip_qo, 0.0)
     return EncodedVectors(u=u, nop=nop, ip_qo=ip_qo)
+
+
+def encode_residuals(parent_vecs, neighbor_vecs, rotated_parents, signs,
+                     bits: int) -> EncodedResiduals:
+    """Encode edge residuals (n - p)/||n - p|| relative to their parent
+    vertices (SymphonyQG-style edge codes).  rotated_parents: the
+    orthonormally rotated raw parent vectors (``hadamard.rotate_raw``)."""
+    p = signs.shape[-1]
+    diff = neighbor_vecs - parent_vecs
+    nop = torch.linalg.vector_norm(diff, dim=-1)
+    eps = norm_epsilon(p)
+    safe = nop >= eps
+    inv = torch.where(safe, 1.0 / nop.clamp_min(eps), 0.0)
+    rotated = hadamard.rotate(hadamard.pad_to(diff * inv[:, None], p), signs)
+    u, ip_qo, ip_cp = caq_quantize(rotated, bits, rotated_parents)
+    return EncodedResiduals(
+        u=torch.where(safe[:, None], u, 0),
+        nop=nop,
+        ip_qo=torch.where(safe, ip_qo, 0.0),
+        ip_cp=torch.where(safe, ip_cp, 0.0),
+    )
 
 
 def encode_queries(queries: torch.Tensor, signs: torch.Tensor) -> QueryCode:

@@ -1,0 +1,353 @@
+"""Batched DABS beam search at layer 0.
+
+PyTorch counterpart of ``cphnsw_tpu/search/beam.py``.  The whole query
+batch advances in lockstep: every step pops the best ``expand_width`` beam
+entries per query (masked by per-query done flags), gathers each popped
+node's fused neighbour row, scores all E*R edges with the fastscan
+estimator and its lower bound, exact-reranks the survivors, and merges
+results and beam.  Per query, the semantics are the JAX package's:
+
+  * DABS termination: stop when the best beam estimate >= gamma_q * d_k
+    and the result heap is full; lower-bound expansion skip;
+  * per-expansion slack-level escalation along the EVT ladder;
+  * warmup until k results: every unseen neighbour is exact-scored and
+    enqueued un-gated;
+  * candidate gates: lower-bound skip, est < d_k -> exact rerank + result
+    push, est < gamma_q * d_k -> enqueue;
+  * online gamma_q adaptation from the est/exact ratio spread;
+  * visited dedup in a dense (Q, N+1) mask or a (Q, 2^b+1) hash table.
+
+Where the port differs from the JAX package, and why results stay the
+same up to which duplicate expansions happen (the result heap dedups):
+
+  * ``lax.while_loop`` becomes a Python loop that reads the done flags on
+    the host only every ``DONE_CHECK_EVERY`` steps, capped at max_steps:
+    a step of a finished query is a no-op (every update is masked by
+    ``active``), so the extra steps change nothing but the step counter;
+  * the beam's ``approx_max_k`` is an exact selection; every top-k breaks
+    ties by the lower index first, as ``lax.top_k`` does;
+  * where two ids of one step hash to one visited slot, the port keeps
+    the last in row order (``_last_writers``), so its searches repeat
+    exactly on CUDA; the JAX scatter fixes no winner;
+  * the fastscan int32 contraction is an exact fp32 product
+    (``estimate.fastscan_sums``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from cphnsw_tpu_torch.graph.build import NeighborStore
+from cphnsw_tpu_torch.graph.nndescent import top_k_smallest
+from cphnsw_tpu_torch.ops import estimate, hadamard, pack, quantize
+from cphnsw_tpu_torch.ops.estimate import full_fp32
+
+FLOAT_MAX = float(torch.finfo(torch.float32).max)
+EPS_SMALL = 1e-12
+# Steps between host reads of the done flags (one device->host sync each).
+DONE_CHECK_EVERY = 8
+# Beam seeds per query taken from the entry-candidate scan.
+N_SEEDS = 4
+
+
+class SearchParams(NamedTuple):
+    """Calibration-derived search constants: f32-valued Python scalars and
+    the (L,) f32 slack ladder on the search device."""
+
+    affine_a: float
+    affine_b: float
+    ip_qo_floor: float
+    slack_levels: torch.Tensor
+    gamma: float          # search_gamma (baseline)
+    gamma_max: float
+    gamma_beta: float
+    gamma_warmup: int
+
+
+class BeamState(NamedTuple):
+    beam_ids: torch.Tensor    # (Q, B) int32
+    beam_est: torch.Tensor    # (Q, B) f32, FLOAT_MAX = empty
+    beam_lower: torch.Tensor  # (Q, B)
+    res_ids: torch.Tensor     # (Q, K) int32, sorted by distance
+    res_d: torch.Tensor       # (Q, K) f32, FLOAT_MAX = empty
+    visited: torch.Tensor     # (Q, N+1) bool or (Q, 2^b+1) int32
+    gamma_q: torch.Tensor     # (Q,)
+    ratio_sum: torch.Tensor
+    ratio_sq: torch.Tensor
+    ratio_cnt: torch.Tensor   # (Q,) int32
+    slack_cnt: torch.Tensor   # (Q,) int32
+    done: torch.Tensor        # (Q,) bool
+    steps: int                # loop steps run
+    last_improve: torch.Tensor  # (Q,) int32: step of last result change
+    res_step: torch.Tensor    # (Q, K) int32: step each result was pushed
+
+
+def _merge_results(res_ids, res_d, res_step, cand_ids, cand_d, step: int,
+                   k: int):
+    ids = torch.cat([res_ids, cand_ids], dim=1)
+    d = torch.cat([res_d, cand_d], dim=1)
+    steps = torch.cat([res_step, torch.full_like(cand_ids, step)], dim=1)
+    top_d, sel = top_k_smallest(d, k)
+    return ids.gather(1, sel), top_d, steps.gather(1, sel)
+
+
+def _last_writers(slot, ok):
+    """ok with every entry dropped that a later ok entry of its row writes
+    over (same hash slot): one writer per slot, the last in row order, so
+    the scatter is deterministic on every device."""
+    w = slot.shape[1]
+    later = torch.ones((w, w), dtype=torch.bool, device=slot.device).triu(1)
+    clash = ((slot[:, :, None] == slot[:, None, :]) & later
+             & ok[:, None, :]).any(dim=-1)
+    return ok & ~clash
+
+
+def _seed_beam(raw, norm_sq, entry_candidates, qpad, qnorm, beam_cap: int,
+               k: int):
+    """(seeds (Q, S) int32 with -1 for empty slots, seed_d (Q, S))."""
+    cands = entry_candidates.to(device=raw.device, dtype=torch.int64)
+    if cands.ndim == 2:
+        # per-query entry seeds (HNSW upper-layer descent); id < 0 marks
+        # an empty slot, priced FLOAT_MAX so it never reaches the results
+        n_seeds = min(cands.shape[1], beam_cap, k)
+        seeds = cands[:, :n_seeds]
+        safe = seeds.clamp_min(0)
+        seed_d = estimate.exact_l2_sq(qpad, qnorm, raw[safe], norm_sq[safe])
+        seed_d = torch.where(seeds >= 0, seed_d, FLOAT_MAX)
+        seed_d, order = torch.sort(seed_d, dim=1, stable=True)
+        seeds = seeds.gather(1, order)
+        seeds = torch.where(seed_d < FLOAT_MAX, seeds, -1)
+    else:
+        # seed scan: exact distances to the shared candidate pool, top-S
+        cands = cands.reshape(-1)
+        n_seeds = min(N_SEEDS, cands.shape[0], beam_cap, k)
+        with full_fp32():
+            cand_dots = qpad @ raw[cands].T
+        d_cand = (qnorm[:, None] + norm_sq[cands][None, :]
+                  - 2.0 * cand_dots).clamp_min(0.0)            # (Q, M)
+        seed_d, slot = top_k_smallest(d_cand, n_seeds)
+        seeds = cands[slot]
+    return seeds.to(torch.int32), seed_d
+
+
+def search_batch(raw, norm_sq, neighbors: NeighborStore, entry_candidates,
+                 signs, queries, params: SearchParams, bits: int, k: int,
+                 beam_cap: int = 128, max_steps: int = 512,
+                 expand_width: int = 1, visited_hash_bits: int = 0,
+                 debug_state: bool = False):
+    """DABS layer-0 search for a batch of queries (Q, <= P) on raw's
+    device.
+
+    entry_candidates: (M,) node ids (the hub entry plus a fixed sample),
+    exact-scored per query to seed its beam with the N_SEEDS nearest, or
+    (Q, S) per-query seeds with -1 for empty slots.  Returns (ids (Q, k)
+    int32, dists (Q, k) f32 exact squared L2, ascending), plus the final
+    BeamState when debug_state."""
+    n, p = raw.shape
+    q = queries.shape[0]
+    r = neighbors.r
+    dev = raw.device
+    k_scale = float((1 << bits) - 1)
+    msb_scale = 1.0 if bits < 2 else 3.0
+    num_levels = params.slack_levels.shape[0]
+    er = expand_width * r
+    words = neighbors.words
+
+    qpad = hadamard.pad_to(queries.to(dev, torch.float32), p)
+    qc = quantize.encode_queries(qpad, signs)
+    qnorm = (qpad * qpad).sum(dim=-1)
+    coeff = [c[:, None] for c in (qc.coeff_a, qc.coeff_b, qc.coeff_c)]
+
+    seeds, seed_d = _seed_beam(raw, norm_sq, entry_candidates, qpad, qnorm,
+                               beam_cap, k)
+    s = seeds.shape[1]
+    beam_ids = torch.full((q, beam_cap), -1, dtype=torch.int32, device=dev)
+    beam_ids[:, :s] = seeds
+    beam_est = torch.full((q, beam_cap), FLOAT_MAX, device=dev)
+    beam_est[:, :s] = seed_d
+    beam_lower = torch.zeros((q, beam_cap), device=dev)
+    res_ids = torch.full((q, k), -1, dtype=torch.int32, device=dev)
+    res_ids[:, :s] = seeds
+    res_d = torch.full((q, k), FLOAT_MAX, device=dev)
+    res_d[:, :s] = seed_d
+    # empty (-1) seed slots go to the spare visited slot
+    if visited_hash_bits > 0:
+        h_size = 1 << visited_hash_bits
+        visited = torch.full((q, h_size + 1), -1, dtype=torch.int32,
+                             device=dev)
+        seed_slot = (seeds % h_size).long()
+        keep = _last_writers(seed_slot, seeds >= 0)
+        visited.scatter_(1, torch.where(keep, seed_slot, h_size),
+                         torch.where(keep, seeds, -1))
+    else:
+        visited = torch.zeros((q, n + 1), dtype=torch.bool, device=dev)
+        visited.scatter_(1, torch.where(seeds >= 0, seeds, n).long(), True)
+
+    gamma_q = torch.full((q,), params.gamma, device=dev)
+    ratio_sum = torch.zeros(q, device=dev)
+    ratio_sq = torch.zeros(q, device=dev)
+    ratio_cnt = torch.zeros(q, dtype=torch.int32, device=dev)
+    slack_cnt = torch.zeros(q, dtype=torch.int32, device=dev)
+    done = torch.zeros(q, dtype=torch.bool, device=dev)
+    last_improve = torch.zeros(q, dtype=torch.int32, device=dev)
+    res_step = torch.zeros((q, k), dtype=torch.int32, device=dev)
+    earlier = (torch.arange(er, device=dev)[:, None]
+               > torch.arange(er, device=dev)[None, :])          # (er, er)
+
+    step = 0
+    while step < max_steps:
+        # ---- pop the best E beam entries per query ----
+        pop_est, pop_slots = top_k_smallest(beam_est, expand_width)
+        pop_lower = beam_lower.gather(1, pop_slots)
+        pop_ids = beam_ids.gather(1, pop_slots)
+        pop_valid = pop_est < FLOAT_MAX
+
+        d_k = res_d[:, k - 1]
+        res_full = d_k < FLOAT_MAX
+        terminate = res_full & (pop_est[:, 0] >= gamma_q * d_k)
+        done = done | ~pop_valid[:, 0] | terminate
+        active = ~done
+
+        popped = torch.zeros_like(beam_est, dtype=torch.bool).scatter_(
+            1, pop_slots, pop_valid)
+        beam_est = torch.where(active[:, None] & popped, FLOAT_MAX, beam_est)
+
+        # per-entry lower-bound expansion skip
+        skip = res_full[:, None] & (pop_lower > d_k[:, None])
+        expand_e = active[:, None] & pop_valid & ~skip            # (Q, E)
+        expand = expand_e.any(dim=1)
+        cur_safe = torch.where(expand_e, pop_ids, 0).long()       # (Q, E)
+
+        # exact distance to each popped node = d_qp^2
+        d_qp_sq = estimate.exact_l2_sq(qpad, qnorm, raw[cur_safe],
+                                       norm_sq[cur_safe])         # (Q, E)
+
+        # slack-level escalation
+        dot_slack = params.slack_levels[slack_cnt.clamp_max(num_levels - 1)]
+        slack_cnt = slack_cnt + expand_e.sum(dim=1, dtype=torch.int32)
+
+        # ---- score all E*R candidates per query ----
+        g = neighbors.fused[cur_safe]                            # (Q, E, F)
+        nbr_ids = g[..., :r].reshape(q, er)
+        valid = (nbr_ids >= 0) & expand_e.repeat_interleave(r, dim=1)
+        nbr_safe = torch.where(valid, nbr_ids, 0).long()
+        aux = g[..., r:5 * r].view(torch.float32).reshape(
+            q, expand_width, 4, r).permute(2, 0, 1, 3).reshape(4, q, er)
+        planes = g[..., 5 * r:(5 + bits * words) * r].reshape(
+            q, expand_width, bits, words, r).permute(0, 1, 4, 2, 3)
+        u = pack.unpack_planes(planes, p).reshape(q, er, p)
+        fs = estimate.fastscan_sums(u, qc.q_u)
+        ip_full = estimate.ip_from_fastscan(fs, aux[3], *coeff, k_scale)
+        if bits >= 2:
+            # planes 0-1 as 2*p0 + p1 (pack.unpack_msb) are the top two
+            # bits of u
+            u_msb = u >> (bits - 2)
+            ip_bound = estimate.ip_from_fastscan(
+                estimate.fastscan_sums(u_msb, qc.q_u),
+                pack.weighted_popcount(u_msb), *coeff, msb_scale)
+        else:
+            ip_bound = ip_full
+
+        calib = estimate.CalibParams(
+            affine_a=params.affine_a, affine_b=params.affine_b,
+            ip_qo_floor=params.ip_qo_floor, dot_slack=dot_slack[:, None])
+        est, lower = estimate.distances_with_bounds(
+            ip_full, ip_bound, aux[0], aux[1], aux[2],
+            d_qp_sq.repeat_interleave(r, dim=1), calib)
+
+        # ---- dedup + gates ----
+        if visited_hash_bits > 0:
+            slot = nbr_safe % h_size
+            seen = visited.gather(1, slot) == nbr_safe
+        else:
+            seen = visited.gather(1, nbr_safe)
+        # intra-step dedup: keep the first occurrence of a neighbour that
+        # two popped nodes share
+        dup_prior = ((nbr_ids[:, :, None] == nbr_ids[:, None, :])
+                     & earlier & valid[:, None, :]).any(dim=-1)
+        cand_ok = valid & ~seen & ~dup_prior
+        if visited_hash_bits > 0:
+            mark = _last_writers(slot, cand_ok)
+            visited.scatter_(1, torch.where(mark, slot, h_size),
+                             torch.where(mark, nbr_safe, -1).int())
+        else:
+            visited.scatter_(1, torch.where(cand_ok, nbr_safe, n), True)
+
+        warmup = ~res_full
+        cand_ok = cand_ok & (warmup[:, None] | (lower < d_k[:, None]))
+        rerank = cand_ok & (warmup[:, None] | (est < d_k[:, None]))
+
+        rr_vecs = raw[nbr_safe]                                  # (Q, ER, P)
+        exact_rr = estimate.exact_l2_sq(qpad, qnorm, rr_vecs,
+                                        (rr_vecs * rr_vecs).sum(dim=-1))
+
+        # ---- result heap pushes: reranked candidates + popped nodes ----
+        pop_in_res = ((pop_ids[:, :, None] == res_ids[:, None, :])
+                      & (pop_ids >= 0)[:, :, None]).any(dim=-1)
+        rr_in_res = ((nbr_safe[:, :, None] == res_ids[:, None, :])
+                     & rerank[:, :, None]).any(dim=-1)
+        push_ids = torch.cat([nbr_safe.int(), cur_safe.int()], dim=1)
+        push_d = torch.cat([
+            torch.where(rerank & ~rr_in_res, exact_rr, FLOAT_MAX),
+            torch.where(expand_e & ~pop_in_res, d_qp_sq, FLOAT_MAX),
+        ], dim=1)
+        new_ids, new_d, new_step = _merge_results(
+            res_ids, res_d, res_step, push_ids, push_d, step + 1, k)
+        new_d = torch.where(expand[:, None], new_d, res_d)
+        improved = expand & (new_d != res_d).any(dim=1)
+        res_ids = torch.where(expand[:, None], new_ids, res_ids)
+        res_d = new_d
+        res_step = torch.where(expand[:, None], new_step, res_step)
+        last_improve = torch.where(improved & active, step + 1, last_improve)
+
+        # ---- DABS enqueue gate ----
+        d_k_new = res_d[:, k - 1]
+        dabs_thresh = torch.where(d_k_new < FLOAT_MAX, gamma_q * d_k_new,
+                                  FLOAT_MAX)[:, None]
+        # reranked entries carry exact distances as beam priority
+        enq_val = torch.where(rerank, exact_rr, est)
+        enq_lower = torch.where(warmup[:, None], enq_val, lower)
+        enq = cand_ok & (enq_val < dabs_thresh)
+        all_est = torch.cat([beam_est, torch.where(enq, enq_val, FLOAT_MAX)],
+                            dim=1)
+        beam_est_new, slot_b = top_k_smallest(all_est, beam_cap)
+        beam_ids_new = torch.cat([beam_ids, nbr_ids], dim=1).gather(1, slot_b)
+        beam_lower_new = torch.cat([beam_lower, enq_lower], dim=1).gather(
+            1, slot_b)
+        beam_est = torch.where(active[:, None], beam_est_new, beam_est)
+        beam_ids = torch.where(active[:, None], beam_ids_new, beam_ids)
+        beam_lower = torch.where(active[:, None], beam_lower_new, beam_lower)
+
+        # ---- online gamma_q adaptation ----
+        contrib = rerank & ~warmup[:, None] & (exact_rr > EPS_SMALL)
+        ratio = torch.where(contrib, est / exact_rr.clamp_min(EPS_SMALL), 0.0)
+        ratio_sum = ratio_sum + torch.where(expand, ratio.sum(dim=1), 0.0)
+        ratio_sq = ratio_sq + torch.where(expand, (ratio * ratio).sum(dim=1),
+                                          0.0)
+        ratio_cnt = ratio_cnt + torch.where(
+            expand, contrib.sum(dim=1, dtype=torch.int32), 0)
+        cnt_f = ratio_cnt.float().clamp_min(1.0)
+        r_mean = ratio_sum / cnt_f
+        r_std = torch.sqrt((ratio_sq / cnt_f - r_mean * r_mean).clamp_min(0.0))
+        gamma_new = torch.clamp(
+            params.gamma * (1.0 + params.gamma_beta * r_std),
+            params.gamma, params.gamma_max)
+        gamma_q = torch.where(expand & (ratio_cnt >= params.gamma_warmup),
+                              gamma_new, gamma_q)
+
+        step += 1
+        if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
+            break
+
+    ids = torch.where(res_d < FLOAT_MAX, res_ids, -1)
+    if not debug_state:
+        return ids, res_d
+    final = BeamState(
+        beam_ids=beam_ids, beam_est=beam_est, beam_lower=beam_lower,
+        res_ids=res_ids, res_d=res_d, visited=visited, gamma_q=gamma_q,
+        ratio_sum=ratio_sum, ratio_sq=ratio_sq, ratio_cnt=ratio_cnt,
+        slack_cnt=slack_cnt, done=done, steps=step,
+        last_improve=last_improve, res_step=res_step)
+    return ids, res_d, final

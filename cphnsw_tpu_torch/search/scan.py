@@ -290,9 +290,9 @@ def est_scores_of(arrays: ScanArrays, qpad, ids, signs, affine_a, affine_b,
     p = arrays.raw.shape[1]
     qc, w_fs, y_aux = _query_side(qpad, signs, affine_a, affine_b, kappa)
     codes_t = pack.unpack_planes(arrays.planes[ids], p)       # (Q, T, P)
+    fs_t = estimate.fastscan_sums(codes_t, qc.q_u)
+    aux_t = arrays.node_aux[:, ids]                           # (6, Q, T)
     with full_fp32():
-        fs_t = torch.einsum("qtp,qp->qt", codes_t.float(), qc.q_u.float())
-        aux_t = arrays.node_aux[:, ids]                       # (6, Q, T)
         const_t = torch.einsum("qa,aqt->qt", y_aux, aux_t[:5])
     return const_t + w_fs[:, None] * aux_t[5] * fs_t
 

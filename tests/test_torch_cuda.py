@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from cphnsw_tpu_torch import ScanIndex
+from cphnsw_tpu_torch import Index, ScanIndex
 from cphnsw_tpu_torch.kernels import scan_keys
 
 torch.set_num_threads(2)
@@ -56,3 +56,24 @@ def test_cuda_index_matches_cpu_index(cuda_device):
     ids_c, d_c = cpu.search_batch(queries, k=10)
     # selection is approximate: >= 0.99 of the returned ids agree
     assert (ids_g[:, :, None] == ids_c[:, None, :]).any(-1).mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_graph_index_matches_cpu_index(cuda_device, tmp_path):
+    """A graph Index built on the card, and the same index (its saved
+    state) searched on the CPU."""
+    rng = np.random.default_rng(1)
+    centers = rng.standard_normal((32, 32)).astype(np.float32) * 3.0
+    base = centers[rng.integers(0, 32, 20_000)] + rng.standard_normal(
+        (20_000, 32)).astype(np.float32)
+    queries = base[rng.choice(20_000, 128, replace=False)] + 0.05
+    gpu = Index(32, bits=1, device=cuda_device).build(base).finalize()
+    gpu.save(tmp_path / "g.npz")
+    cpu = Index(32, bits=1, device="cpu").load(tmp_path / "g.npz")
+    ids_g, d_g = gpu.search_batch(queries, k=10)
+    ids_c, d_c = cpu.search_batch(queries, k=10)
+    # tie order and hash-visited winners may differ: >= 0.99 of the ids
+    assert (ids_g[:, :, None] == ids_c[:, None, :]).any(-1).mean() >= 0.99
+    d = ((queries[:, None, :] - base[None]) ** 2).sum(-1)
+    gt = np.argsort(d, axis=1)[:, :10]
+    assert (ids_g[:, :, None] == gt[:, None, :]).any(-1).mean() >= 0.9

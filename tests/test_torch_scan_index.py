@@ -262,8 +262,10 @@ def test_cpindex_auto_is_scan(data, monkeypatch):
     np_idx = ScanIndex(DIM, bits=1, device="cpu").build(base[:1000]).finalize()
     np.testing.assert_array_equal(
         idx.search_batch(queries, k=K)[0], np_idx.search_batch(queries, k=K)[0])
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        CPIndex(DIM, engine="graph", device="cpu")
+    graph = CPIndex(DIM, engine="graph", device="cpu")
+    graph.build(base[:300])
+    graph.finalize()
+    assert graph.engine == "graph" and graph.size == 300
     # the default device is the GPU; without one it raises, never moves
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -274,7 +276,13 @@ def test_cpindex_auto_is_scan(data, monkeypatch):
 
 def test_package_imports_no_jax():
     code = ("import sys, cphnsw_tpu_torch, cphnsw_tpu_torch.utils.datasets, "
-            "cphnsw_tpu_torch.utils.eval; "
+            "cphnsw_tpu_torch.utils.eval, cphnsw_tpu_torch.utils.native, "
+            "cphnsw_tpu_torch.api.upper_layers, "
+            "cphnsw_tpu_torch.calibration.calibrate, "
+            "cphnsw_tpu_torch.calibration.evt, "
+            "cphnsw_tpu_torch.graph.build, cphnsw_tpu_torch.graph.nndescent, "
+            "cphnsw_tpu_torch.graph.pruning, cphnsw_tpu_torch.graph.stats, "
+            "cphnsw_tpu_torch.search.beam; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('cphnsw_tpu.') or m == 'cphnsw_tpu' "
             "for m in sys.modules), 'cphnsw_tpu imported'")
