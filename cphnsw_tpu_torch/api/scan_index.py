@@ -51,6 +51,16 @@ def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def write_index(path, header: dict, raw: np.ndarray, centroid: np.ndarray,
+                node_host: dict):
+    """One scan index file: header JSON + host arrays in one npz, the JAX
+    package's format."""
+    np.savez_compressed(
+        path,
+        header=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8),
+        raw=raw, centroid=centroid, **node_host)
+
+
 class ScanIndex:
     """Flat calibrated-scan index on `device` (default "cuda")."""
 
@@ -308,24 +318,24 @@ class ScanIndex:
         """Header JSON + arrays in one npz, the JAX package's format."""
         if not self._finalized:
             raise RuntimeError("Index must be finalized before saving.")
-        np.savez_compressed(
-            path,
-            header=np.frombuffer(json.dumps(self._header()).encode(),
-                                 dtype=np.uint8),
-            raw=self._arrays.raw.cpu().numpy(),
-            centroid=self._centroid.cpu().numpy(),
-            **self._node_host,
-        )
+        write_index(path, self._header(), self._arrays.raw.cpu().numpy(),
+                    self._centroid.cpu().numpy(), self._node_host)
 
     def load(self, path: str | Path):
         """Restore a saved index (validates magic/version/dim/bits/seed/
         metric before committing anything)."""
+        return self.load_state(*self._load_host(path))
+
+    def _load_host(self, path: str | Path) -> tuple[dict, dict]:
+        """Parse and validate a saved index on the host only: (header, host
+        numpy arrays).  The sharded load slices these per shard, so the
+        full store never lands on one device."""
         with np.load(path) as z:
             header = json.loads(bytes(z["header"].tobytes()).decode())
             self._check_header(header)
             arrays = {key: np.asarray(z[key])
                       for key in ("raw", "centroid", *NODE_KEYS)}
-        return self.load_state(header, arrays)
+        return header, arrays
 
     def _check_header(self, header: dict):
         if header.get("magic") != MAGIC:
@@ -345,17 +355,13 @@ class ScanIndex:
                              f"mismatches constructor metric="
                              f"{self._metric!r}")
 
-    def load_state(self, header: dict, arrays: dict):
-        """Install an index from its header fields and host numpy arrays
-        (raw, centroid, nop, ip_qo, ip_cp, wpc, planes as uint32): the
-        state of a saved file, or of a JAX-package index."""
-        self._check_header(header)
-        dev = self._device
+    def _apply_header(self, header: dict):
+        """Commit the scalar fields of a validated header."""
         self._n = int(header["n"])
         if header["padded"] != self._padded:
             self._padded = int(header["padded"])
             self._signs = hadamard.rotation_signs(
-                self._seed, self._padded).to(dev)
+                self._seed, self._padded).to(self._device)
         self._ip_norm_bound = header.get("ip_norm_bound")
         self._affine_a = float(header["affine_a"])
         self._affine_b = float(header["affine_b"])
@@ -364,6 +370,14 @@ class ScanIndex:
             anchors=np.asarray(header["budget_anchors"], np.int64),
             ranks=np.asarray(header["budget_ranks"], np.int64),
         )
+
+    def load_state(self, header: dict, arrays: dict):
+        """Install an index from its header fields and host numpy arrays
+        (raw, centroid, nop, ip_qo, ip_cp, wpc, planes as uint32): the
+        state of a saved file, or of a JAX-package index."""
+        self._check_header(header)
+        self._apply_header(header)
+        dev = self._device
         node = {key: np.asarray(arrays[key]) for key in NODE_KEYS}
         node["planes"] = np.ascontiguousarray(node["planes"], dtype=np.uint32)
         self._node_host = node

@@ -47,7 +47,9 @@ def read_ivecs(path: Path) -> np.ndarray:
     return raw.reshape(-1, k + 1)[:, 1:].copy()
 
 
-def load_dataset(name: str, base_dir: Path) -> dict:
+def load_dataset(name: str, base_dir: Path, gt_device=None) -> dict:
+    """A dataset by name: fvecs or npy files under base_dir/name, or a
+    synthetic set (ground truth on `gt_device` if given)."""
     base_path = Path(base_dir) / name
     if name in FVECS_DATASETS:
         files = FVECS_DATASETS[name]
@@ -59,7 +61,7 @@ def load_dataset(name: str, base_dir: Path) -> dict:
         queries = np.load(base_path / "queries.npy").astype(np.float32)
         groundtruth = np.load(base_path / "groundtruth.npy").astype(np.int32)
     elif name.startswith("synthetic"):
-        return make_synthetic(name)
+        return make_synthetic(name, gt_device=gt_device)
     else:
         raise ValueError(f"Unknown dataset: {name}")
     return {
@@ -122,16 +124,11 @@ def device_groundtruth(base, queries, gt_k: int, metric: str = "l2",
     return gt
 
 
-def make_synthetic(name: str = "synthetic", n: int = 100_000,
-                   dim: int = 128, n_queries: int = 1000, gt_k: int = 100,
-                   n_clusters: int = 256, seed: int = 0,
-                   gt_device=None) -> dict:
-    """Clustered gaussian data with exact ground truth.
-
-    `name` may encode size, e.g. "synthetic-1m-128d" or
-    "synthetic-100k-1536d-ip".  Base and queries come from the JAX
-    package's host numpy recipe (bit-identical for the same seed); the
-    ground truth is computed on the host, or on `gt_device` if given."""
+def synthetic_shape(name: str, n: int = 100_000,
+                    dim: int = 128) -> tuple[int, int, str]:
+    """(n, dim, metric) a synthetic dataset name encodes, e.g.
+    "synthetic-1m-128d" or "synthetic-100k-1536d-ip"; n and dim default
+    to the given values where the name leaves them out."""
     metric = "l2"
     for p in name.split("-")[1:]:
         if p == "ip":
@@ -142,6 +139,20 @@ def make_synthetic(name: str = "synthetic", n: int = 100_000,
             n = int(float(p[:-1]) * 1_000_000)
         elif p.endswith("d"):
             dim = int(p[:-1])
+    return n, dim, metric
+
+
+def make_synthetic(name: str = "synthetic", n: int = 100_000,
+                   dim: int = 128, n_queries: int = 1000, gt_k: int = 100,
+                   n_clusters: int = 256, seed: int = 0,
+                   gt_device=None) -> dict:
+    """Clustered gaussian data with exact ground truth.
+
+    `name` may encode size (``synthetic_shape``).  Base and queries come
+    from the JAX package's host numpy recipe (bit-identical for the same
+    seed); the ground truth is computed on the host, or on `gt_device` if
+    given."""
+    n, dim, metric = synthetic_shape(name, n, dim)
     rng = np.random.default_rng(seed)
     centers = rng.standard_normal((n_clusters, dim)).astype(np.float32) * 3.0
     base = centers[rng.integers(0, n_clusters, n)] + rng.standard_normal(

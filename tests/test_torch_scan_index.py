@@ -282,7 +282,9 @@ def test_package_imports_no_jax():
             "cphnsw_tpu_torch.calibration.evt, "
             "cphnsw_tpu_torch.graph.build, cphnsw_tpu_torch.graph.nndescent, "
             "cphnsw_tpu_torch.graph.pruning, cphnsw_tpu_torch.graph.stats, "
-            "cphnsw_tpu_torch.search.beam; "
+            "cphnsw_tpu_torch.search.beam, "
+            "cphnsw_tpu_torch.parallel.sharded, cphnsw_tpu_torch.__main__; "
+            "cphnsw_tpu_torch.ShardedIndex, cphnsw_tpu_torch.ShardedScanIndex; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('cphnsw_tpu.') or m == 'cphnsw_tpu' "
             "for m in sys.modules), 'cphnsw_tpu imported'")
