@@ -4,10 +4,16 @@
 
 Phases, in order; any failed check exits non-zero:
   1. environment: a CUDA device, the toolchain (torch, CUDA, nvcc, triton);
-  2. build: compile csrc/scan_keys.cu with nvcc from the checkout;
+  2. build: compile csrc/scan_keys.cu with nvcc from the checkout, print
+     ptxas's registers and spills per kernel (any spill fails);
   3. the scan_keys kernel against its plain PyTorch version at the main
      path's shapes (1M x 128d store, Q = 2048, bins = 1024): sketch mode
-     and estimate mode at bits 1/2/4; keys must be bit-equal;
+     (and 64- and 256-query batches, whose group axis is split over the
+     card: timed against splits=1 too, merge_kernel launches counted) and
+     estimate mode at bits 1/2/4; keys must be bit-equal; each with its
+     bound (the larger of int8 operations at peak and bytes at the memory
+     rate), roofline share and the product alone through torch._int_mm as
+     a yardstick;
   4. the main drive: CPIndex(128, bits=1) on 1M x 128d synthetic data
      (seed 0, 256 clusters, 8192 queries, ground truth on the card),
      build + finalize, one warm and 5 timed search_batch(k=10), recall@10
@@ -27,7 +33,8 @@ Phases, in order; any failed check exits non-zero:
      one warm and 5 timed search_batch(k=10) of 8192 queries with
      recall@10 >= 0.99, the kernel in estimate mode on every shard (at
      least one launch per shard per sub-batch), the kernel against its
-     plain version on one shard's real operands, a per-shard stage split
+     plain version on one shard's real operands (with its bound and
+     yardstick), a per-shard stage split
      and the merge, then save -> load into a fresh single-device ScanIndex
      and a fresh ShardedScanIndex;
  10. the sharded graph: ShardedIndex(128, bits=1, r=32) on the same data
@@ -45,6 +52,7 @@ limit as nvidia-smi reports them, and the result JSON.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -80,6 +88,10 @@ SHARDED_GRAPH_RUNS = 3
 # results/synthetic-1m-128d_results.json): ranks at k = 1, 10, 100.
 JAX_1M_BUDGET_RANKS = [2251, 3121, 3612]
 CLI_DATASET = "synthetic-20k-64d"
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
+# int8 tensor-core operations and HBM3 bytes per second.
+INT8_OPS_PER_S = 1979e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(*args):
@@ -113,26 +125,111 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
-def check_kernel(name, operands, bins, card, results):
+def kernel_bound(rows, p, q, bins):
+    """(ms, roof): the least time the card could take for one launch, the
+    larger of its int8 operations at the peak rate and its bytes (each
+    input read once, the key planes written once) at the memory rate."""
+    ops = 2 * q * rows * p
+    nbytes = rows * p + 6 * rows * 4 + q * p + q * 4 + q * 5 * 4 + \
+        q * scan_keys.FUSED_TOPM * bins * 4
+    by_ops, by_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else \
+        (by_bytes, "bytes")
+
+
+def int_mm_ms(codes, q8):
+    """The product alone as one library call, torch._int_mm(q8, codes.T),
+    its (Q, rows) int32 result written to device memory: a yardstick the
+    port never calls.  None (and the reason printed) if it refuses."""
+    try:
+        ms = median_ms(lambda: torch._int_mm(q8, codes.t()))
+    except RuntimeError as exc:
+        log(f"  torch._int_mm refuses Q={q8.shape[0]} P={q8.shape[1]} "
+            f"rows={codes.shape[0]}: {str(exc).splitlines()[0]}")
+        return None
+    torch.cuda.empty_cache()
+    return ms
+
+
+def check_kernel(name, operands, bins, card, results, yardstick=True):
     """Kernel vs plain version on the same device tensors: bit-equal keys,
-    and both median times."""
+    both median times, the bound and the product-only yardstick.  A shape
+    whose group axis is split is also timed unsplit (splits=1), and its
+    merge kernel's launches are counted."""
+    (rows, p), q = operands[0].shape, operands[2].shape[0]
+    plan = scan_keys.launch_plan(q, p, bins, rows // bins, torch.cuda.
+                                 get_device_properties(0).
+                                 multi_processor_count)
+    merges = scan_keys.merge_launches
     got = scan_keys.fused_scan_keys(*operands, bins)
+    merges = scan_keys.merge_launches - merges
     want = scan_keys.scan_keys_reference(*operands, bins)
     torch.cuda.synchronize()
     equal = (got == want).double().mean().item()
     max_err = (got.long() - want.long()).abs().max().item()
+    if plan.splits > 1 and not torch.equal(
+            scan_keys.fused_scan_keys(*operands, bins, splits=1), want):
+        fail(f"{name}: the unsplit kernel's keys differ")
+    del got, want
     ms = median_ms(lambda: scan_keys.fused_scan_keys(*operands, bins))
     plain_ms = median_ms(
         lambda: scan_keys.scan_keys_reference(*operands, bins))
-    log(f"  {name}: rows={operands[0].shape[0]} P={operands[0].shape[1]} "
-        f"Q={operands[2].shape[0]} bins={bins} keys_equal={equal} "
-        f"max_abs_err={max_err} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        f"[{card}]")
+    bound_ms, roof = kernel_bound(rows, p, q, bins)
+    mm_ms = int_mm_ms(operands[0], operands[2]) if yardstick else None
+    unsplit_ms = None
+    if plan.splits > 1:
+        unsplit_ms = median_ms(
+            lambda: scan_keys.fused_scan_keys(*operands, bins, splits=1))
+        log(f"  {name}: split {plan.splits} ways, merge_kernel launches "
+            f"{merges}, kernel_ms (both kernels) {ms:.4f} against "
+            f"unsplit_ms {unsplit_ms:.4f} [{card}]")
+        if merges != 1:
+            fail(f"{name}: the split call launched merge_kernel {merges} "
+                 f"times")
+    log(f"  {name}: rows={rows} P={p} Q={q} bins={bins} "
+        f"splits={plan.splits} keys_equal={equal} max_abs_err={max_err} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms="
+        f"{bound_ms:.4f} ({roof}) roofline_share={bound_ms / ms:.4f} "
+        f"int_mm_ms={mm_ms if mm_ms is None else round(mm_ms, 4)} [{card}]")
     if equal != 1.0:
         fail(f"{name}: kernel keys differ from the plain version "
              f"(equal fraction {equal})")
     results.append(dict(mode=name, ms=ms, plain_ms=plain_ms,
-                        max_abs_err=max_err))
+                        max_abs_err=max_err, bound_ms=bound_ms, bound_by=roof,
+                        roofline_share=bound_ms / ms, int_mm_ms=mm_ms,
+                        splits=plan.splits, unsplit_ms=unsplit_ms,
+                        merge_launches=merges))
+
+
+def ptxas_report(path):
+    """Registers and spill bytes of each kernel in the library's ptxas
+    log; fails on any spill."""
+    report, name = [], None
+    for ln in scan_keys.build_log(path).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            kind = re.search(r"(scan_keys_kernel|merge_kernel)", name)
+            tmpl = re.search(r"ILb([01])ELi(\d+)E", name)
+            report.append(dict(kernel=kind.group(1) if kind else name))
+            if tmpl:
+                report[-1].update(fast_cvt=bool(int(tmpl.group(1))),
+                                  k_chunks=int(tmpl.group(2)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and report:
+            report[-1].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and report:
+            report[-1]["registers"] = int(m.group(1))
+    for r in report:
+        log(f"  ptxas: {json.dumps(r)}")
+    spilled = [r for r in report if r.get("spill_stores") or
+               r.get("spill_loads")]
+    if not report or spilled:
+        fail(f"ptxas reports spills or no kernels: {spilled or report}")
+    return report
 
 
 def estimate_operands(raw, n, bits, signs, qpad, bins, rows_kpad):
@@ -570,9 +667,12 @@ def main():
         log(f"  triton does not import: {exc}")
 
     # 2. build
-    path, secs = scan_keys.build_library()
-    log(f"[2] built {Path(path).name} in {secs:.2f} s "
-        f"(0 = already built from this source)")
+    path, build_s = scan_keys.build_library()
+    log(f"[2] built {Path(path).name} in {build_s:.2f} s "
+        f"(0 = already built from this source); dynamic shared memory per "
+        f"block at P = 128: "
+        f"{scan_keys.load_library().scan_keys_smem_bytes(128)} bytes")
+    ptxas = ptxas_report(path)
 
     # 3. kernel vs plain version at the main path's shapes
     data = make_synthetic(f"synthetic-{N_MAIN // 1000}k-{DIM}d",
@@ -590,9 +690,15 @@ def main():
     results = []
     sketch = scan.make_rerank_sketch(raw)
     codes, aux = scan.sketch_store_operands(sketch, N_MAIN, rows_kpad)
-    check_kernel("sketch", [codes, aux, *scan.sketch_query(
-        qpad, sketch.scale)], bins, card, results)
-    del sketch, codes, aux
+    sketch_ops = [codes, aux, *scan.sketch_query(qpad, sketch.scale)]
+    check_kernel("sketch", sketch_ops, bins, card, results)
+    # 64- and 256-query tail batches: the group axis split over the card
+    # (4 and 2 ways on 132 SMs), merged
+    for q in (64, 256):
+        check_kernel(f"sketch-q{q}", [codes, aux] + [t[:q] for t in
+                                                      sketch_ops[2:]],
+                     bins, card, results, yardstick=False)
+    del sketch, codes, aux, sketch_ops
     signs = hadamard.rotation_signs(hadamard.DEFAULT_ROTATION_SEED,
                                     DIM).cuda()
     for bits in (1, 2, 4):
@@ -608,7 +714,10 @@ def main():
     scan_keys.launches = 0
     idx, ids = drive("1M x 128d 1-bit", data, 1, card)
     launches = scan_keys.launches
-    log(f"  scan_keys launches in the main drive: {launches}")
+    per_batch = launches / (TIMED_RUNS + 1)
+    log(f"  scan_keys launches in the main drive: {launches} over "
+        f"{TIMED_RUNS + 1} batches ({per_batch:g} per {N_QUERIES}-query "
+        f"batch of {SUB_BATCH}-query sub-batches)")
     if launches <= 0:
         fail("the main drive never launched the scan_keys kernel")
     split = stage_split(idx._index, data["queries"], card)
@@ -726,10 +835,14 @@ def main():
         launches_by_path=dict(main=launches, sharded_scan=s_launches,
                               graph=graph_launches,
                               sharded_graph=g_launches),
+        launches_per_batch=dict(main=per_batch, sharded_scan=s_per_batch),
         max_abs_err=max(r["max_abs_err"] for r in results),
-        ms=sk["ms"], plain_ms=sk["plain_ms"],
-        modes={r["mode"]: dict(ms=r["ms"], plain_ms=r["plain_ms"])
+        ms=sk["ms"], plain_ms=sk["plain_ms"], bound_ms=sk["bound_ms"],
+        bound_by=sk["bound_by"], library_ms=None,
+        roofline_share=sk["roofline_share"], int_mm_ms=sk["int_mm_ms"],
+        modes={r["mode"]: {k: v for k, v in r.items() if k != "mode"}
                for r in results},
+        build_s=build_s, ptxas=ptxas,
         search_stage_ms=split,
         sharded_scan_stage_ms=s_split,
         sharded_scan_launches_per_batch=s_per_batch,

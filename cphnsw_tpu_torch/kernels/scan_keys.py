@@ -25,7 +25,10 @@ so another rounding order would reorder ~1% of the keys.)
 version ``scan_keys_reference`` for CPU tensors; it never falls back from
 one to the other.  The CUDA source is compiled with ``nvcc`` at first use
 into ``build/cphnsw_tpu_torch/`` beside the package and loaded with
-ctypes.
+ctypes.  ``launch_plan`` is the launch's shape in plain Python: queries
+padded to the kernel's 128-query tile, K to 16 bytes, and the number of
+group ranges (``split_count``) that a small batch's tiles are spread over
+to fill the card, merged exactly on the card afterwards.
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -56,19 +61,23 @@ BIN_BLOCK = 512
 # enough to rank last, small enough that the score stays finite.
 PAD_SCORE = 1e30
 
-# Tiles of the CUDA kernel (csrc/scan_keys.cu: BQ, BN, K alignment).
-Q_TILE = 64
-BIN_TILE = 64
+# Tiles of the CUDA kernel (csrc/scan_keys.cu): BQ queries x BN bins per
+# block; TMA needs row strides that are multiples of 16 bytes (it fills
+# the K tail of each 128-byte box with zeros itself).
+Q_TILE = 128
+BIN_TILE = 32
 K_ALIGN = 16
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "scan_keys.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
     "cphnsw_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Number of CUDA kernel launches; the plain version does not count.
+# Number of CUDA scan kernel launches, and of merge kernel launches (one
+# more per split call); the plain version does not count.
 launches = 0
+merge_launches = 0
 
 
 def fused_bin_plan(n_pad: int, top_c: int) -> tuple[int, int, int]:
@@ -97,7 +106,44 @@ def derived_sub_batch(n_pad: int, top_c: int, cap: int = 2048) -> int:
     return sub
 
 
-def _check_operands(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux, bins):
+def split_count(tiles: int, groups: int, sms: int) -> int:
+    """Ranges to split the group axis into, so that a block per (tile,
+    range) fills the `sms` multiprocessors in one wave when the tiles
+    alone do not (small query batches); at most one range per group.
+    Each extra range costs a partial plane set and the merge, so a card
+    the tiles already fill gets none.  The scratch stays within
+    sms * Q_TILE * BIN_TILE * 4 keys (8.6 MB on 132 SMs)."""
+    return max(1, min(sms // tiles, groups))
+
+
+class LaunchPlan(NamedTuple):
+    q_pad: int                  # queries padded to Q_TILE
+    p_k: int                    # K width padded to K_ALIGN
+    tiles: int                  # (q_pad / Q_TILE) * (bins / BIN_TILE)
+    splits: int                 # group ranges, one block each per tile
+    scratch: tuple | None       # partial key planes when splits > 1
+
+
+def launch_plan(q: int, p: int, bins: int, groups: int, sms: int,
+                splits: int | None = None) -> LaunchPlan:
+    """How the CUDA kernel covers a (q, p) query block against groups x
+    bins rows on a card with `sms` multiprocessors; `splits` overrides
+    the split count (1 <= splits <= groups)."""
+    if bins % BIN_TILE:
+        raise ValueError(f"bins {bins} is not a multiple of {BIN_TILE}")
+    q_pad = -(-q // Q_TILE) * Q_TILE
+    tiles = q_pad // Q_TILE * (bins // BIN_TILE)
+    if splits is None:
+        splits = split_count(tiles, groups, sms)
+    elif not 1 <= splits <= groups:
+        raise ValueError(f"splits {splits} must lie in 1..groups {groups}")
+    scratch = (splits, q_pad, FUSED_TOPM * bins) if splits > 1 else None
+    return LaunchPlan(q_pad, -(-p // K_ALIGN) * K_ALIGN, tiles, splits,
+                      scratch)
+
+
+def _check_operands(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux, bins,
+                    first_group=0):
     rows_kpad, p = codes_i8.shape
     q = q_u_i8.shape[0]
     dev = codes_i8.device
@@ -120,9 +166,10 @@ def _check_operands(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux, bins):
             raise ValueError(f"{name} must be contiguous")
     if bins <= 0 or rows_kpad % bins:
         raise ValueError(f"rows {rows_kpad} are not a multiple of bins {bins}")
-    if rows_kpad // bins > (1 << GROUP_BITS):
-        raise ValueError(f"{rows_kpad // bins} groups exceed the "
-                         f"{1 << GROUP_BITS} that pack into the key")
+    if first_group < 0 or first_group + rows_kpad // bins > (1 << GROUP_BITS):
+        raise ValueError(f"groups {first_group}..{first_group + rows_kpad // bins}"
+                         f" exceed the {1 << GROUP_BITS} that pack into the "
+                         f"key")
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -133,8 +180,10 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def scan_keys_reference(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux,
-                        bins: int) -> torch.Tensor:
+                        bins: int, first_group: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same signature and output.
+    ``first_group`` numbers the rows' groups from there (a range of a
+    larger store), as one split of the kernel's group axis does.
 
     Loops over groups keeping the four key planes, so memory stays at
     O(Q * bins).  fs is a float64 product: exact for |fs| < 2^53, and it
@@ -142,7 +191,8 @@ def scan_keys_reference(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux,
     fp32 is not exact at P = 2048).  The epilogue uses the kernel's
     operation order; each fused multiply-add is emulated in float64 (the
     f32 x f32 product is exact there)."""
-    _check_operands(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux, bins)
+    _check_operands(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux, bins,
+                    first_group)
     rows_kpad = codes_i8.shape[0]
     q = q_u_i8.shape[0]
     dev = codes_i8.device
@@ -159,13 +209,24 @@ def scan_keys_reference(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux,
             score = _fma(y_aux[:, a, None], aux[a][None, :], score)
         i = score.view(torch.int32)
         key = torch.where(i >= 0, i, i ^ I32_MAX)
-        carry = (key & NOT_GROUP) | g
+        carry = (key & NOT_GROUP) | (first_group + g)
         for m in range(FUSED_TOPM - 1):
             old = planes[m]
             planes[m] = torch.minimum(old, carry)
             carry = torch.maximum(old, carry)
         planes[-1] = torch.minimum(planes[-1], carry)
     return torch.cat(planes, dim=1)
+
+
+def merge_key_planes(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The 4 smallest keys per (query, bin) over several (Q, 4 * bins) key
+    plane sets, e.g. the kernel's group ranges: keys of one bin carry
+    distinct group bits, so this equals one pass over all the groups."""
+    q, width = parts[0].shape
+    bins = width // FUSED_TOPM
+    keys = torch.cat([t.view(q, FUSED_TOPM, bins) for t in parts], dim=1)
+    best = keys.sort(dim=1).values[:, :FUSED_TOPM]
+    return best.reshape(q, width).contiguous()
 
 
 def _nvcc() -> str:
@@ -176,35 +237,54 @@ def _nvcc() -> str:
     return path
 
 
-def build_library() -> tuple[Path, float]:
-    """Compile csrc/scan_keys.cu into a shared library named by the hash
-    of the source and flags; returns (path, seconds spent compiling),
-    0.0 seconds when that library already exists."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libscan_keys-{tag}.so"
+def library_path(extra_flags=(), build_dir: Path = BUILD_DIR) -> Path:
+    """Where ``build_library`` puts the build with NVCC_FLAGS plus
+    `extra_flags`: named by the hash of the source and all the flags."""
+    flags = " ".join([*NVCC_FLAGS, *extra_flags])
+    tag = hashlib.sha256(SOURCE.read_bytes() + flags.encode()).hexdigest()[:16]
+    return Path(build_dir) / f"libscan_keys-{tag}.so"
+
+
+def build_library(extra_flags=(),
+                  build_dir: Path = BUILD_DIR) -> tuple[Path, float]:
+    """Compile csrc/scan_keys.cu with NVCC_FLAGS plus `extra_flags` (e.g.
+    a preprocessor switch) into ``library_path``; returns (path, seconds
+    spent compiling), 0.0 seconds when that library already exists.
+    ptxas's report (registers, shared memory, spills) is kept beside it
+    (``build_log``)."""
+    out = library_path(extra_flags, build_dir)
     if out.exists():
         return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+                           str(SOURCE)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    build_log(out).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out, time.perf_counter() - t0
 
 
+def build_log(library: Path) -> Path:
+    return library.with_suffix(".log")
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build_library()
-    lib = ctypes.CDLL(str(path))
+def load_library(path: Path | None = None) -> ctypes.CDLL:
+    """The ctypes handle of a build from ``build_library`` at `path`;
+    None: the package's own build, compiled at first use."""
+    if path is None:
+        path = build_library()[0]
+    lib = ctypes.CDLL(str(Path(path).resolve()))
     fn = lib.scan_keys_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.scan_keys_smem_bytes.argtypes = [ctypes.c_int]
+    lib.scan_keys_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -215,15 +295,26 @@ def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([t, pad])
 
 
-def fused_scan_keys(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux,
-                    bins: int) -> torch.Tensor:
+def _launch_error(err: int) -> str:
+    if err == 2000:
+        return "the driver has no cuTensorMapEncodeTiled"
+    if err > 1000:
+        return f"cuTensorMapEncodeTiled failed: CUresult {err - 1000}"
+    return f"CUDA error {err}"
+
+
+def fused_scan_keys(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux, bins: int,
+                    *, splits: int | None = None,
+                    library: Path | None = None) -> torch.Tensor:
     """(Q, FUSED_TOPM * bins) signed int32 packed top-4 bin keys over the
     kernel-padded store (rows_kpad = groups * bins rows).
 
     CPU tensors run ``scan_keys_reference``; CUDA tensors launch the CUDA
     kernel on the current stream (no synchronization); anything else
-    raises."""
-    global launches
+    raises.  `splits` overrides the planned split of the group axis and
+    `library` names another build (``build_library``) of the kernel: both
+    are for timing the kernel against itself, and the CPU ignores them."""
+    global launches, merge_launches
     dev = codes_i8.device
     if dev.type == "cpu":
         return scan_keys_reference(codes_i8, node_aux_k, q_u_i8, w_fs,
@@ -231,31 +322,39 @@ def fused_scan_keys(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux,
     if dev.type != "cuda":
         raise ValueError(f"fused_scan_keys runs on cpu or cuda, not {dev}")
     _check_operands(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux, bins)
-    if bins % BIN_TILE:
-        raise ValueError(f"bins {bins} is not a multiple of {BIN_TILE}")
     rows_kpad, p = codes_i8.shape
     q = q_u_i8.shape[0]
+    groups = rows_kpad // bins
+    plan = launch_plan(q, p, bins, groups, torch.cuda.get_device_properties(
+        dev).multi_processor_count, splits)
     # zero K padding leaves every dot product unchanged
-    p_k = -(-p // K_ALIGN) * K_ALIGN
-    if p_k != p:
-        codes_i8 = torch.nn.functional.pad(codes_i8, (0, p_k - p))
-        q_u_i8 = torch.nn.functional.pad(q_u_i8, (0, p_k - p))
-    q_k = -(-q // Q_TILE) * Q_TILE
-    q_u_i8 = _pad_rows(q_u_i8, q_k)
-    w_fs = _pad_rows(w_fs, q_k)
-    y_aux = _pad_rows(y_aux, q_k)
-    if codes_i8.data_ptr() % 16 or q_u_i8.data_ptr() % 16:
-        raise ValueError("codes_i8 and q_u_i8 must be 16-byte aligned")
-    out = torch.empty((q_k, FUSED_TOPM * bins), dtype=torch.int32,
+    if plan.p_k != p:
+        codes_i8 = torch.nn.functional.pad(codes_i8, (0, plan.p_k - p))
+        q_u_i8 = torch.nn.functional.pad(q_u_i8, (0, plan.p_k - p))
+    q_u_i8 = _pad_rows(q_u_i8, plan.q_pad)
+    w_fs = _pad_rows(w_fs, plan.q_pad)
+    y_aux = _pad_rows(y_aux, plan.q_pad)
+    # TMA reads from 16-byte aligned bases
+    for name, t in (("codes_i8", codes_i8), ("node_aux_k", node_aux_k),
+                    ("q_u_i8", q_u_i8)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty((plan.q_pad, FUSED_TOPM * bins), dtype=torch.int32,
                       device=dev)
+    partial = (torch.empty(plan.scratch, dtype=torch.int32, device=dev)
+               if plan.scratch else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().scan_keys_launch(
+        err = load_library(library).scan_keys_launch(
             codes_i8.data_ptr(), node_aux_k.data_ptr(), q_u_i8.data_ptr(),
             w_fs.data_ptr(), y_aux.data_ptr(), out.data_ptr(),
-            q_k, p_k, bins, rows_kpad // bins, stream,
+            partial.data_ptr() if partial is not None else None,
+            plan.q_pad, plan.p_k, bins, groups, plan.splits, stream,
         )
     if err != 0:
-        raise RuntimeError(f"scan_keys kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"scan_keys kernel launch failed: "
+                           f"{_launch_error(err)}")
     launches += 1
+    if plan.splits > 1:
+        merge_launches += 1
     return out[:q]

@@ -23,22 +23,112 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _kernel_operands(device, rows, p, q, seed, extreme=False):
+    """Random operands with scores of both signs and the last tenth of the
+    rows at the pad sentinel; `extreme` sets every code and query byte to
+    -128, the largest |fs| the int8 product can reach."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(device=device, generator=g)
+    ops = [torch.randint(-128, 128, (rows, p), dtype=torch.int8, **kw),
+           torch.randn((6, rows), **kw),
+           torch.randint(-128, 128, (q, p), dtype=torch.int8, **kw),
+           torch.randn(q, **kw), torch.randn((q, 5), **kw)]
+    if extreme:
+        ops[0].fill_(-128)
+        ops[2].fill_(-128)
+    ops[1][0, rows - rows // 10:] = scan_keys.PAD_SCORE
+    return ops
+
+
+# (rows, p, q, bins): K widths 16 .. 2048 (zero K tails in the 128-byte
+# TMA boxes, the resident and the streamed query tile), Q off the 128-query
+# tile, groups 1 .. 1024, the main path's and one sharded-scan shard's
+# shapes, and small batches whose group axis is split over the card
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,p,q,bins", [
-    (4096, 16, 100, 512), (8192, 40, 64, 1024), (100_352, 128, 2048, 1024)])
+    (4096, 16, 100, 512), (8192, 40, 64, 1024), (100_352, 128, 2048, 1024),
+    (512, 16, 100, 512), (38 * 512, 128, 300, 512),
+    (1_000_448, 128, 2048, 1024), (1_000_448, 128, 100, 1024),
+    (1024 * 512, 16, 200, 512), (40 * 512, 1024, 200, 512),
+    (20 * 512, 2048, 130, 512), (252_928, 128, 2048, 6656)])
 def test_kernel_equals_plain_version(cuda_device, rows, p, q, bins):
-    g = torch.Generator(device=cuda_device).manual_seed(rows + p)
-    kw = dict(device=cuda_device, generator=g)
-    ops = [torch.randint(-127, 128, (rows, p), dtype=torch.int8, **kw),
-           torch.randn((6, rows), **kw),
-           torch.randint(-127, 128, (q, p), dtype=torch.int8, **kw),
-           torch.randn(q, **kw), torch.randn((q, 5), **kw)]
+    ops = _kernel_operands(cuda_device, rows, p, q, rows + p)
     before = scan_keys.launches
     got = scan_keys.fused_scan_keys(*ops, bins)
     assert scan_keys.launches == before + 1
     want = scan_keys.scan_keys_reference(*ops, bins)
     # the same fused multiply-add order on both sides: bit-equal keys
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [256, 272])
+def test_kernel_extreme_products(cuda_device, p):
+    """|fs| = 128 * 128 * p: exactly 2^22 at p = 256, the last width whose
+    int -> float conversion takes the magic-number path, and beyond it at
+    p = 272."""
+    ops = _kernel_operands(cuda_device, 4 * 512, p, 130, p, extreme=True)
+    got = scan_keys.fused_scan_keys(*ops, 512)
+    assert torch.equal(got, scan_keys.scan_keys_reference(*ops, 512))
+
+
+@pytest.mark.cuda
+def test_group_split_merges_exactly(cuda_device):
+    """A small batch over many groups runs split over the card's SMs (one
+    scan and one merge launch); the merged planes, and those of forced
+    splits, equal the plain version's single pass."""
+    rows, p, q, bins = 977 * 1024, 128, 64, 1024
+    plan = scan_keys.launch_plan(q, p, bins, rows // bins, torch.cuda.
+                                 get_device_properties(cuda_device).
+                                 multi_processor_count)
+    assert plan.splits > 1
+    ops = _kernel_operands(cuda_device, rows, p, q, 7)
+    want = scan_keys.scan_keys_reference(*ops, bins)
+    before = scan_keys.launches, scan_keys.merge_launches
+    assert torch.equal(scan_keys.fused_scan_keys(*ops, bins), want)
+    assert (scan_keys.launches, scan_keys.merge_launches) == (
+        before[0] + 1, before[1] + 1)
+    for splits in (1, 3, 977):
+        assert torch.equal(
+            scan_keys.fused_scan_keys(*ops, bins, splits=splits), want)
+    assert scan_keys.merge_launches == before[1] + 3
+
+
+@pytest.mark.cuda
+def test_kernel_on_every_device(cuda_device):
+    """One process launches the same kernel instances on every card in
+    turn, above 48 KB of shared memory (P 256, 1024): each card needs its
+    own opt-in.  Skips on a one-card machine."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more GPUs")
+    for p in (256, 1024):
+        assert scan_keys.load_library().scan_keys_smem_bytes(p) > 48 << 10
+        for i in range(count):
+            dev = torch.device("cuda", i)
+            ops = _kernel_operands(dev, 8 * 512, p, 130, i + p)
+            got = scan_keys.fused_scan_keys(*ops, 512)
+            assert got.device == dev
+            assert torch.equal(got, scan_keys.scan_keys_reference(*ops, 512))
+
+
+@pytest.mark.cuda
+def test_scan_index_launches_once_per_sub_batch(cuda_device):
+    from cphnsw_tpu_torch.api import scan_index
+    from cphnsw_tpu_torch.search import scan
+
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal((3000, 32)).astype(np.float32)
+    idx = ScanIndex(32, bits=1, device=cuda_device).build(base).finalize()
+    sub = scan_keys.derived_sub_batch(
+        idx._arrays.raw.shape[0],
+        scan._rerank_survivors(10, idx._budget.top_c(10, idx._n)),
+        cap=scan_index.SEARCH_SUB_BATCH)
+    queries = base[rng.integers(0, 3000, 2 * sub + 100)] + 0.05
+    before = scan_keys.launches
+    ids, dists = idx.search_batch(queries, k=10)
+    assert scan_keys.launches - before == 3
+    assert ids.shape == (len(queries), 10) and np.isfinite(dists).all()
 
 
 @pytest.mark.cuda
