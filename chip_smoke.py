@@ -15,16 +15,28 @@ Phases, in order; any failed check exits non-zero:
      rate), roofline share and the product alone through torch._int_mm as
      a yardstick;
   4. the main drive: CPIndex(128, bits=1) on 1M x 128d synthetic data
-     (seed 0, 256 clusters, 8192 queries, ground truth on the card),
+     (seed 0, 256 clusters, 8192 queries, drawn on the card from JAX's
+     Threefry stream as the JAX package draws it on its accelerator,
+     ground truth on the card),
      build + finalize, one warm and 5 timed search_batch(k=10), recall@10
      >= 0.99 through the kernel; then a 100k x 128d 4-bit drive;
-  5. save -> load round trip into a fresh CPIndex: equal ids;
+  5. save -> load round trip into a fresh CPIndex: equal ids; then the
+     JAX package's other selections on the main index, one 2048-query
+     sub-batch each: (a) the chunked selection (fused=False: int8
+     products, per-bin top-2 keys; ms, recall@10, overlap with the kernel
+     path, top_c, peak memory, a stage split), (b) exact_select (the
+     recall ceiling), (c) the bf16 two-stage rerank of 4096 candidates
+     (the branch that ran, against single-stage f32); (d) the Threefry
+     recipe: seconds to draw 1M x 128d on the card, and the card against
+     the CPU at 4096 x 64 (integer draws equal, max ulp of the normals);
+     (e) BruteForceIndex(128, bits=1) on 100k x 128d: recall@10, QPS;
   6. the graph drive: CPIndex(128, bits=1, engine="graph") on the same 1M x
      128d data, build + finalize (seconds per stage), one warm and 5 timed
      search_batch(k=10) on the first 1024 queries, recall@10 >= 0.90, the
      beam steps and ms per step (CUDA events);
   7. a 100k x 128d 4-bit graph drive (the MSB two-stage bound), recall@10
-     >= 0.90, then save -> load into a fresh CPIndex: equal ids;
+     >= 0.90, then save -> load into a fresh CPIndex: equal ids; (f) its
+     beam with rerank_width = 8 against 0 (rerank all): id overlap;
   8. torch.profiler over one warm 1M graph batch: device-busy share, the
      five kernels with the most device time, launches per beam step;
   9. the sharded scan: ShardedScanIndex(128, bits=1) on the same 1M x 128d
@@ -65,10 +77,10 @@ import torch
 
 from cphnsw_tpu_torch import CPIndex, ScanIndex
 from cphnsw_tpu_torch.kernels import scan_keys
-from cphnsw_tpu_torch.ops import hadamard, quantize
+from cphnsw_tpu_torch.ops import hadamard, pack, quantize, threefry
 from cphnsw_tpu_torch.parallel import sharded
-from cphnsw_tpu_torch.search import scan
-from cphnsw_tpu_torch.utils import native
+from cphnsw_tpu_torch.search import bruteforce, scan
+from cphnsw_tpu_torch.utils import datasets, native
 from cphnsw_tpu_torch.utils.datasets import make_synthetic
 from cphnsw_tpu_torch.utils.eval import recall_at_k
 
@@ -88,6 +100,16 @@ SHARDED_GRAPH_RUNS = 3
 # results/synthetic-1m-128d_results.json): ranks at k = 1, 10, 100.
 JAX_1M_BUDGET_RANKS = [2251, 3121, 3612]
 CLI_DATASET = "synthetic-20k-64d"
+# Candidates per query of the two-stage rerank check (phase 5c): at
+# TWO_STAGE_MIN_C, the least count that goes two-stage.
+TWO_STAGE_CANDIDATES = scan.TWO_STAGE_MIN_C
+# Brute-force drive (phase 5e): its (Q, N) estimate matrix is whole, so
+# it takes one 2048-query batch; its recall is that of top_c = 4k
+# estimate candidates, a sanity floor only.
+BRUTE_QUERIES = 2048
+BRUTE_MIN_RECALL = 0.5
+# Graph rerank cap checked in phase 7 (of E * R = 128 candidates a step).
+RERANK_WIDTH = 8
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
 # int8 tensor-core operations and HBM3 bytes per second.
 INT8_OPS_PER_S = 1979e12
@@ -647,6 +669,273 @@ def cli_drive(card):
     return summaries
 
 
+def chunked_stage_split(index, q_dev, top_c, card):
+    """Median ms of each stage of the chunked selection on one sub-batch
+    (CUDA events around the stages of scan_search's chunked branch,
+    summed over the chunks), and the chunk plan."""
+    arrays, n = index._arrays, index.size
+    n_pad, p = arrays.raw.shape
+    chunk, n_eq, rem = scan.chunk_plan(n_pad, q_dev.shape[0])
+    layout = scan.chunk_layout(scan.plan_slices(n_pad, chunk, n_eq, rem),
+                               top_c)
+    names = ["query_encode", "unpack", "int8_product", "epilogue",
+             "binned_keys", "decode", "rerank"]
+    samples = {k: [] for k in names}
+    for it in range(TIMED_RUNS + 1):
+        ms = dict.fromkeys(names, 0.0)
+        events = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((name, ev))
+
+        mark(None)
+        qpad = hadamard.pad_to(q_dev.float(), p)
+        qnorm = (qpad * qpad).sum(dim=-1)
+        qc, w_fs, y_aux = scan._query_side(qpad, index._signs,
+                                           index._affine_a,
+                                           index._affine_b, 1.0)
+        q8 = qc.q_u.to(torch.int8)
+        mark("query_encode")
+        keys = []
+        for start, size, g, bins in layout:
+            codes = pack.unpack_codes_i8(
+                arrays.planes[start:start + size], p)
+            mark("unpack")
+            fs = scan.int8_product(q8, codes)
+            mark("int8_product")
+            score = scan_keys.folded_scores(
+                fs, arrays.node_aux[:, start:start + size], w_fs, y_aux)
+            mark("epilogue")
+            keys.append(scan._binned_keys(score, g, bins))
+            mark("binned_keys")
+        cand = scan.decode_chunk_keys(keys, layout, top_c)
+        mark("decode")
+        scan._rerank(arrays.raw, arrays.norm_sq, qpad, qnorm, cand, n, K)
+        mark("rerank")
+        torch.cuda.synchronize()
+        for (_, a), (name, b) in zip(events, events[1:]):
+            ms[name] += a.elapsed_time(b)
+        if it:
+            for name in names:
+                samples[name].append(ms[name])
+    split = {k: round(statistics.median(v), 4) for k, v in samples.items()}
+    log(f"  chunked stage split, ms per {q_dev.shape[0]}-query sub-batch "
+        f"(chunk plan {n_eq} x {chunk} + {rem} rows, top_c {top_c}; "
+        f"(groups, bins) per chunk "
+        f"{sorted({(g, bins) for _, _, g, bins in layout})}): "
+        f"{json.dumps(split)} [{card}]")
+    return split
+
+
+def selection_drives(index, data, kernel_ids, card):
+    """Phases 5a-5c on the main index: the chunked selection and the
+    exact selection against the kernel path on one sub-batch, then the
+    bf16 two-stage rerank of TWO_STAGE_CANDIDATES candidates."""
+    arrays, n = index._arrays, index.size
+    n_pad = arrays.raw.shape[0]
+    q16 = data["queries"][:SUB_BATCH].astype(np.float16)
+    q_dev = torch.from_numpy(q16).cuda()
+    gt = data["groundtruth"][:SUB_BATCH]
+    kernel_ids = kernel_ids[:SUB_BATCH]
+    chunk = scan.chunk_plan(n_pad, SUB_BATCH)[0]
+    top_c = max(min(index._budget.top_c(K, n), chunk), K)
+    # the JAX package's off-TPU ScanIndex passes a sketch only from
+    # TWO_STAGE_MIN_C candidates, bf16 at this store size
+    sketch = None
+    if top_c >= scan.TWO_STAGE_MIN_C:
+        sketch = scan.make_rerank_sketch(arrays.raw, arrays.norm_sq)
+    out = {}
+    for name, kw in (("chunked", dict(fused=False)),
+                     ("exact_select", dict(exact_select=True))):
+        def search():
+            return scan.scan_search(
+                arrays, q_dev, index._signs, index._affine_a,
+                index._affine_b, n, kappa=1.0, k=K, top_c=top_c,
+                sketch=sketch, **kw)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches = scan_keys.launches
+        ms = median_ms(search)
+        ids, dists = (t.cpu().numpy() for t in search())
+        if scan_keys.launches != launches:
+            fail(f"{name}: the selection launched the scan_keys kernel")
+        recall = recall_at_k(ids, gt, K)
+        over = float((ids[:, :, None] == kernel_ids[:, None, :]).any(-1)
+                     .mean())
+        out[name] = dict(ms=ms, recall=recall, overlap=over, top_c=top_c,
+                         peak_gib=peak_gib())
+        log(f"  [5{'a' if name == 'chunked' else 'b'}] {name} selection, "
+            f"{SUB_BATCH} queries: {ms:.3f} ms per sub-batch (median of "
+            f"{TIMED_RUNS}), recall@{K}={recall:.4f}, id overlap with the "
+            f"kernel path {over:.4f}, top_c {top_c}, sketch "
+            f"{'bf16' if sketch is not None else 'none'}, peak device "
+            f"memory {peak_gib():.2f} GiB [{card}]")
+        if ids.shape != (SUB_BATCH, K) or not np.isfinite(dists).all():
+            fail(f"{name}: malformed result {ids.shape}")
+        if recall < MIN_RECALL:
+            fail(f"{name}: recall@{K} {recall} < {MIN_RECALL}")
+    out["chunked_stage_ms"] = chunked_stage_split(index, q_dev, top_c, card)
+
+    # 5c: the bf16 two-stage rerank, on the exact nearest candidates in a
+    # shuffled order
+    qpad = hadamard.pad_to(q_dev.float(), arrays.raw.shape[1])
+    qnorm = (qpad * qpad).sum(dim=-1)
+    cand, _ = scan._true_topk_chunked(arrays.raw, arrays.norm_sq, qpad,
+                                      qnorm, n, TWO_STAGE_CANDIDATES)
+    cand = cand.gather(1, torch.argsort(torch.rand(cand.shape,
+                                                   device=cand.device)))
+    bf16 = scan.make_rerank_sketch(arrays.raw, arrays.norm_sq)
+    stages = []
+    spied = scan._candidate_topk
+
+    def spy(raw, *args):
+        stages.append(str(raw.dtype).replace("torch.", ""))
+        return spied(raw, *args)
+
+    scan._candidate_topk = spy
+    try:
+        ids_2, d_2 = scan._rerank(arrays.raw, arrays.norm_sq, qpad, qnorm,
+                                  cand, n, K, sketch=bf16)
+    finally:
+        scan._candidate_topk = spied
+    ids_1, _ = scan._rerank(arrays.raw, arrays.norm_sq, qpad, qnorm, cand,
+                            n, K)
+    two_ms = median_ms(lambda: scan._rerank(
+        arrays.raw, arrays.norm_sq, qpad, qnorm, cand, n, K, sketch=bf16))
+    one_ms = median_ms(lambda: scan._rerank(
+        arrays.raw, arrays.norm_sq, qpad, qnorm, cand, n, K))
+    ids_2, ids_1 = ids_2.cpu().numpy(), ids_1.cpu().numpy()
+    over = float((ids_2[:, :, None] == ids_1[:, None, :]).any(-1).mean())
+    log(f"  [5c] rerank of {cand.shape[1]} candidates x {SUB_BATCH} "
+        f"queries: branch ran = stages {stages} (two-stage: bf16 sketch "
+        f"selects {scan._rerank_survivors(K, cand.shape[1])} survivors, "
+        f"then f32), {two_ms:.3f} ms against single-stage f32 "
+        f"{one_ms:.3f} ms, id overlap {over:.4f}, recall@{K} "
+        f"{recall_at_k(ids_2, gt, K):.4f} [{card}]")
+    if stages != ["bfloat16", "float32"] or bf16.scale is not None:
+        fail(f"the bf16 two-stage rerank did not run: stages {stages}")
+    if over < 0.99 or not torch.isfinite(d_2).all():
+        fail(f"bf16 two-stage rerank overlap {over} < 0.99")
+    out["two_stage"] = dict(candidates=cand.shape[1], stages=stages,
+                            ms=two_ms, single_stage_ms=one_ms, overlap=over)
+    return out
+
+
+def threefry_drive(card):
+    """Phase 5d: seconds to draw the 1M x 128d recipe on the card, and the
+    same generator on the card against the CPU at 4096 x 64 (32
+    clusters, 100 queries): integer draws equal, max ulp of the
+    normals."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base, _ = datasets._device_synthetic(N_MAIN, DIM, N_QUERIES, 256, 0,
+                                         "cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    del base
+    torch.cuda.empty_cache()
+    kc, ka, kn, kq, _ = threefry.split(threefry.prng_key(0), 5)
+    equal = all(torch.equal(a.cpu(), b) for a, b in (
+        (threefry.randint(ka, 4096, 0, 32, "cuda"),
+         threefry.randint(ka, 4096, 0, 32, "cpu")),
+        (threefry.permutation(kq, 4096, "cuda")[:100],
+         threefry.permutation(kq, 4096, "cpu")[:100])))
+
+    def ordinal(t):
+        i = t.cpu().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    max_ulp = 0
+    for key, shape in ((kc, (32, 64)), (kn, (4096, 64))):
+        a = threefry.normal(key, shape, "cuda")
+        b = threefry.normal(key, shape, "cpu")
+        max_ulp = max(max_ulp, int((ordinal(a) - ordinal(b)).abs().max()))
+    b_cuda, q_cuda = datasets._device_synthetic(4096, 64, 100, 32, 0, "cuda")
+    b_cpu, q_cpu = datasets._device_synthetic(4096, 64, 100, 32, 0, "cpu")
+    data_ulp = int((ordinal(b_cuda) - ordinal(b_cpu)).abs().max())
+    log(f"  [5d] Threefry recipe: {N_MAIN // 1000}k x {DIM}d drawn on the "
+        f"card in "
+        f"{gen_s:.3f} s; card vs CPU at 4096 x 64: integer draws equal "
+        f"{equal}, max ulp of the normals {max_ulp}, of the base "
+        f"{data_ulp}, queries equal {np.array_equal(q_cuda, q_cpu)} "
+        f"[{card}]")
+    if not equal:
+        fail("the Threefry integer draws differ between the card and CPU")
+    return dict(generate_s=gen_s, integers_equal=equal,
+                normal_max_ulp=max_ulp)
+
+
+def brute_force_drive(small, card):
+    """Phase 5e: BruteForceIndex(128, bits=1) on the 100k x 128d data,
+    one warm and TIMED_RUNS timed BRUTE_QUERIES-query batches."""
+    queries = small["queries"][:BRUTE_QUERIES]
+    gt = small["groundtruth"][:BRUTE_QUERIES]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    idx = bruteforce.BruteForceIndex(DIM, bits=1, device="cuda").build(
+        small["base"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids, dists, lat = timed_searches(lambda q: idx.search_batch(q, k=K),
+                                     queries, TIMED_RUNS)
+    p50 = statistics.median(lat)
+    recall = recall_at_k(ids, gt, K)
+    exact = ((queries[:, None, :] - small["base"][ids]) ** 2).sum(-1)
+    log(f"  [5e] BruteForceIndex {N_SMALL // 1000}k x {DIM}d 1-bit: build "
+        f"{build_s:.2f} s, "
+        f"recall@{K}={recall:.4f} (top_c {max(4 * K, 100)}), "
+        f"QPS={len(queries) / p50:.1f}, p50 batch {p50 * 1e3:.2f} ms "
+        f"(Q={len(queries)}), peak device memory {peak_gib():.2f} GiB "
+        f"[{card}]")
+    if ids.shape != (len(queries), K) or not np.allclose(
+            dists, exact, rtol=1e-3, atol=1e-3):
+        fail("brute force: malformed result or inexact distances")
+    # the same index with ten times the default candidates
+    wide, _, wide_lat = timed_searches(
+        lambda q: idx.search_batch(q, k=K, top_c=10 * max(4 * K, 100)),
+        queries, TIMED_RUNS)
+    wide_recall = recall_at_k(wide, gt, K)
+    wide_qps = len(queries) / statistics.median(wide_lat)
+    log(f"  [5e] top_c {10 * max(4 * K, 100)}: recall@{K}="
+        f"{wide_recall:.4f}, QPS={wide_qps:.1f} [{card}]")
+    if recall < BRUTE_MIN_RECALL:
+        fail(f"brute force: recall@{K} {recall} < {BRUTE_MIN_RECALL}")
+    return dict(recall=recall, qps=len(queries) / p50, build_s=build_s,
+                recall_top_c_1000=wide_recall, qps_top_c_1000=wide_qps)
+
+
+def rerank_width_drive(g, queries, card):
+    """Phase 7f: the beam with rerank_width = RERANK_WIDTH against the
+    default (rerank every candidate) on the same queries."""
+    q_dev = torch.from_numpy(queries).cuda()
+    runs = {}
+    for width in (0, RERANK_WIDTH):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ids, d, state = g._beam(q_dev, g._entry_candidates, K,
+                                g._max_steps(K), rerank_width=width,
+                                debug_state=True)
+        end.record()
+        torch.cuda.synchronize()
+        runs[width] = (ids.cpu().numpy(), d.cpu().numpy(), state.steps,
+                       start.elapsed_time(end))
+    (ids0, _, s0, ms0), (ids8, d8, s8, ms8) = runs[0], runs[RERANK_WIDTH]
+    over = float((ids8[:, :, None] == ids0[:, None, :]).any(-1).mean())
+    raw = g._raw.cpu().numpy()
+    qpad = np.pad(queries, ((0, 0), (0, raw.shape[1] - queries.shape[1])))
+    exact = ((qpad[:, None, :] - raw[np.maximum(ids8, 0)]) ** 2).sum(-1)
+    log(f"  [7f] beam rerank_width={RERANK_WIDTH} of "
+        f"{g._expand_width * g._r} candidates a step: id overlap with "
+        f"rerank_width=0 {over:.4f}; {s8} steps in {ms8:.2f} ms against "
+        f"{s0} in {ms0:.2f} ms (Q={len(queries)}) [{card}]")
+    if (ids8 < 0).any() or not np.allclose(d8, exact, rtol=1e-3, atol=1e-3):
+        fail("rerank_width beam: missing ids or inexact distances")
+    return dict(overlap=over, steps=s8, ms=ms8, steps_full=s0, ms_full=ms0)
+
+
 def main():
     t_start = time.perf_counter()
     # 1. environment
@@ -678,17 +967,20 @@ def main():
     data = make_synthetic(f"synthetic-{N_MAIN // 1000}k-{DIM}d",
                           n_queries=N_QUERIES,
                           gt_k=K, n_clusters=256, seed=0, gt_device="cuda")
+    if "base_dev_factory" not in data:
+        fail("the 1M store was not drawn on the card")
     log(f"[3] data: base {data['base'].shape}, queries "
-        f"{data['queries'].shape}, ground truth on the card, "
+        f"{data['queries'].shape}, drawn on the card from the Threefry "
+        f"stream, ground truth on the card, "
         f"{time.perf_counter() - t_start:.1f} s since start")
     n_pad = scan.store_pad(N_MAIN)
-    raw, _ = scan.pad_store_and_norms(
+    raw, norm_sq = scan.pad_store_and_norms(
         torch.from_numpy(data["base"]).cuda(), n_pad, DIM)
     qpad = torch.from_numpy(
         data["queries"][:SUB_BATCH].astype(np.float16)).cuda().float()
     bins, groups, rows_kpad = scan_keys.fused_bin_plan(n_pad, 512)
     results = []
-    sketch = scan.make_rerank_sketch(raw)
+    sketch = scan.make_rerank_sketch(raw, norm_sq, force_int8=True)
     codes, aux = scan.sketch_store_operands(sketch, N_MAIN, rows_kpad)
     sketch_ops = [codes, aux, *scan.sketch_query(qpad, sketch.scale)]
     check_kernel("sketch", sketch_ops, bins, card, results)
@@ -739,7 +1031,18 @@ def main():
             f"file {f.stat().st_size / 2**20:.1f} MiB")
     if not np.array_equal(ids, ids2):
         fail("ids after save -> load differ")
-    del idx, fresh
+    del fresh
+    torch.cuda.empty_cache()
+
+    # 5a-5e. the JAX package's other selections on the main index, its
+    # Threefry data recipe, the brute-force index
+    log("[5a-e] chunked and exact selection, bf16 two-stage rerank on the "
+        "main index; Threefry recipe; BruteForceIndex")
+    phases = selection_drives(idx._index, data, ids, card)
+    del idx
+    torch.cuda.empty_cache()
+    phases["threefry"] = threefry_drive(card)
+    phases["brute_force"] = brute_force_drive(small, card)
     torch.cuda.empty_cache()
 
     # 6. graph main drive
@@ -771,6 +1074,7 @@ def main():
             f"{fresh.engine}")
     if fresh.engine != "graph" or not np.array_equal(sids, sids2):
         fail("graph ids after save -> load differ")
+    phases["rerank_width"] = rerank_width_drive(sidx._index, sq, card)
     del sidx, fresh
 
     # 8. profile of the 1M graph batch
@@ -847,6 +1151,7 @@ def main():
         sharded_scan_stage_ms=s_split,
         sharded_scan_launches_per_batch=s_per_batch,
     )]
+    log(f"phases 5a-5e, 7f: {json.dumps(phases)}")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -201,7 +201,8 @@ class ScanIndex:
 
     def _rerank_sketch(self) -> scan.RerankSketch:
         if self._sketch is None:
-            self._sketch = scan.make_rerank_sketch(self._arrays.raw)
+            self._sketch = scan.make_rerank_sketch(
+                self._arrays.raw, self._arrays.norm_sq, force_int8=True)
         return self._sketch
 
     # ------------------------------------------------------------ search

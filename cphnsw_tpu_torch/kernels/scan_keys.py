@@ -46,6 +46,8 @@ from typing import NamedTuple
 
 import torch
 
+from cphnsw_tpu_torch.ops.rounding import fma_f32
+
 GROUP_BITS = 10
 GROUP_MASK = (1 << GROUP_BITS) - 1
 NOT_GROUP = ~GROUP_MASK                # int32 -1024
@@ -172,11 +174,21 @@ def _check_operands(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux, bins,
                          f"key")
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """f32 a * b + c with one rounding: the product of two f32 values is
-    exact in float64, so only the sum rounds before the cast (a second
-    rounding there needs the sum within 2^-53 of an f32 midpoint)."""
-    return (a.double() * b.double() + c.double()).float()
+def folded_scores(fs, aux, w_fs, y_aux) -> torch.Tensor:
+    """(Q, rows) f32 scores from f32 products fs (Q, rows) and the rows'
+    aux (6, rows), rounded in the kernel's operation order."""
+    score = fma_f32(w_fs[:, None] * aux[5][None, :], fs,
+                    y_aux[:, 0, None] * aux[0][None, :])
+    for a in range(1, 5):
+        score = fma_f32(y_aux[:, a, None], aux[a][None, :], score)
+    return score
+
+
+def signed_keys(score: torch.Tensor) -> torch.Tensor:
+    """Signed-monotone int32 keys of f32 scores: the order of the keys is
+    the order of the scores."""
+    i = score.view(torch.int32)
+    return torch.where(i >= 0, i, i ^ I32_MAX)
 
 
 def scan_keys_reference(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux,
@@ -202,14 +214,8 @@ def scan_keys_reference(codes_i8, node_aux_k, q_u_i8, w_fs, y_aux,
     for g in range(rows_kpad // bins):
         rows = slice(g * bins, (g + 1) * bins)
         fs = (q64 @ codes_i8[rows].to(torch.float64).T).to(torch.float32)
-        aux = node_aux_k[:, rows]
-        score = _fma(w_fs[:, None] * aux[5][None, :], fs,
-                     y_aux[:, 0, None] * aux[0][None, :])
-        for a in range(1, 5):
-            score = _fma(y_aux[:, a, None], aux[a][None, :], score)
-        i = score.view(torch.int32)
-        key = torch.where(i >= 0, i, i ^ I32_MAX)
-        carry = (key & NOT_GROUP) | (first_group + g)
+        score = folded_scores(fs, node_aux_k[:, rows], w_fs, y_aux)
+        carry = (signed_keys(score) & NOT_GROUP) | (first_group + g)
         for m in range(FUSED_TOPM - 1):
             old = planes[m]
             planes[m] = torch.minimum(old, carry)

@@ -5,22 +5,18 @@ unnormalized butterfly stages, the same 3-layer random sign rotation with
 the combined ``P**-1.5`` normalization, and sign layers that reproduce the
 JAX package's ``jax.random.rademacher(PRNGKey(seed), (3, P))`` bit for bit.
 An index file stores only the rotation seed, so the signs must regenerate
-identically without JAX: ``rotation_signs`` re-implements the partitionable
-Threefry-2x32 stream in numpy.
+identically without JAX: ``rotation_signs`` draws them from the port's
+copy of the Threefry-2x32 stream (``ops/threefry.py``).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
+
+from cphnsw_tpu_torch.ops import threefry
 
 NUM_ROTATION_LAYERS = 3
 DEFAULT_ROTATION_SEED = 42
-
-# Threefry-2x32, 20 rounds (Salmon et al., "Parallel random numbers: as
-# easy as 1, 2, 3"); the constants are those of JAX's threefry2x32.
-_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_THREEFRY_PARITY = 0x1BD11BDA
 
 
 def next_pow2(n: int) -> int:
@@ -50,47 +46,19 @@ def fwht(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _rotl32(x: np.ndarray, r: int) -> np.ndarray:
-    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
-
-
-def _threefry2x32(k0: int, k1: int, c0: np.ndarray, c1: np.ndarray):
-    """Threefry-2x32 block function over uint32 counter arrays."""
-    ks = (np.uint32(k0), np.uint32(k1),
-          np.uint32(k0 ^ k1 ^ _THREEFRY_PARITY))
-    with np.errstate(over="ignore"):
-        x0 = c0 + ks[0]
-        x1 = c1 + ks[1]
-        for i in range(5):
-            for r in _THREEFRY_ROTATIONS[i % 2]:
-                x0 = x0 + x1
-                x1 = _rotl32(x1, r) ^ x0
-            x0 = x0 + ks[(i + 1) % 3]
-            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
-    return x0, x1
-
-
 def rotation_signs(seed: int, padded_dim: int) -> torch.Tensor:
     """(NUM_LAYERS, padded_dim) Rademacher sign layers from a seed.
 
     Bit-equal to ``jax.random.rademacher(jax.random.PRNGKey(seed),
-    (3, padded_dim), float32)`` under JAX's default partitionable
-    Threefry with 64-bit mode off: key ``(0, seed & 0xFFFFFFFF)`` (JAX
-    keeps only the seed's low 32 bits), counter = the flat
-    element index split into (hi, lo) words, bits = x0 ^ x1, and the sign
-    is +1 where the uniform ``float((bits >> 9) | 0x3F800000) - 1`` is
-    below 0.5 (JAX's ``bernoulli(key, 0.5)``).
+    (3, padded_dim), float32)``: the sign is +1 where the uniform of the
+    element's Threefry bits (``ops/threefry.py``) is below 0.5 (JAX's
+    ``bernoulli(key, 0.5)``).
     """
-    seed = int(seed) & 0xFFFFFFFF
-    idx = np.arange(NUM_ROTATION_LAYERS * padded_dim, dtype=np.uint64)
-    hi = (idx >> np.uint64(32)).astype(np.uint32)
-    lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    x0, x1 = _threefry2x32(0, seed, hi, lo)
-    bits = x0 ^ x1
-    u = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
-    u = u - np.float32(1.0)
-    signs = np.where(u < np.float32(0.5), 1.0, -1.0).astype(np.float32)
-    return torch.from_numpy(signs.reshape(NUM_ROTATION_LAYERS, padded_dim))
+    bits = threefry.random_bits(threefry.prng_key(seed), 0,
+                                NUM_ROTATION_LAYERS * padded_dim, "cpu")
+    u = threefry.uniform_from_bits(bits)
+    signs = torch.where(u < 0.5, 1.0, -1.0)
+    return signs.reshape(NUM_ROTATION_LAYERS, padded_dim)
 
 
 def rotate(x: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:

@@ -48,8 +48,6 @@ FLOAT_MAX = float(torch.finfo(torch.float32).max)
 EPS_SMALL = 1e-12
 # Steps between host reads of the done flags (one device->host sync each).
 DONE_CHECK_EVERY = 8
-# Beam seeds per query taken from the entry-candidate scan.
-N_SEEDS = 4
 
 
 class SearchParams(NamedTuple):
@@ -105,7 +103,7 @@ def _last_writers(slot, ok):
 
 
 def _seed_beam(raw, norm_sq, entry_candidates, qpad, qnorm, beam_cap: int,
-               k: int):
+               k: int, n_seeds: int):
     """(seeds (Q, S) int32 with -1 for empty slots, seed_d (Q, S))."""
     cands = entry_candidates.to(device=raw.device, dtype=torch.int64)
     if cands.ndim == 2:
@@ -122,7 +120,7 @@ def _seed_beam(raw, norm_sq, entry_candidates, qpad, qnorm, beam_cap: int,
     else:
         # seed scan: exact distances to the shared candidate pool, top-S
         cands = cands.reshape(-1)
-        n_seeds = min(N_SEEDS, cands.shape[0], beam_cap, k)
+        n_seeds = min(n_seeds, cands.shape[0], beam_cap, k)
         with full_fp32():
             cand_dots = qpad @ raw[cands].T
         d_cand = (qnorm[:, None] + norm_sq[cands][None, :]
@@ -135,16 +133,19 @@ def _seed_beam(raw, norm_sq, entry_candidates, qpad, qnorm, beam_cap: int,
 def search_batch(raw, norm_sq, neighbors: NeighborStore, entry_candidates,
                  signs, queries, params: SearchParams, bits: int, k: int,
                  beam_cap: int = 128, max_steps: int = 512,
-                 expand_width: int = 1, visited_hash_bits: int = 0,
+                 n_seeds: int = 4, expand_width: int = 1,
+                 rerank_width: int = 0, visited_hash_bits: int = 0,
                  debug_state: bool = False):
     """DABS layer-0 search for a batch of queries (Q, <= P) on raw's
     device.
 
     entry_candidates: (M,) node ids (the hub entry plus a fixed sample),
-    exact-scored per query to seed its beam with the N_SEEDS nearest, or
-    (Q, S) per-query seeds with -1 for empty slots.  Returns (ids (Q, k)
-    int32, dists (Q, k) f32 exact squared L2, ascending), plus the final
-    BeamState when debug_state."""
+    exact-scored per query to seed its beam with the n_seeds nearest, or
+    (Q, S) per-query seeds with -1 for empty slots.  rerank_width > 0
+    caps each step's exact rerank at that many of the best estimates (the
+    rest keep their estimates as beam priority); 0 reranks every
+    candidate.  Returns (ids (Q, k) int32, dists (Q, k) f32 exact squared
+    L2, ascending), plus the final BeamState when debug_state."""
     n, p = raw.shape
     q = queries.shape[0]
     r = neighbors.r
@@ -161,7 +162,8 @@ def search_batch(raw, norm_sq, neighbors: NeighborStore, entry_candidates,
     coeff = [c[:, None] for c in (qc.coeff_a, qc.coeff_b, qc.coeff_c)]
 
     seeds, seed_d = _seed_beam(raw, norm_sq, entry_candidates, qpad, qnorm,
-                               beam_cap, k)
+                               beam_cap, k, n_seeds)
+    rw = min(rerank_width, er) if rerank_width > 0 else er
     s = seeds.shape[1]
     beam_ids = torch.full((q, beam_cap), -1, dtype=torch.int32, device=dev)
     beam_ids[:, :s] = seeds
@@ -279,18 +281,29 @@ def search_batch(raw, norm_sq, neighbors: NeighborStore, entry_candidates,
         cand_ok = cand_ok & (warmup[:, None] | (lower < d_k[:, None]))
         rerank = cand_ok & (warmup[:, None] | (est < d_k[:, None]))
 
-        rr_vecs = raw[nbr_safe]                                  # (Q, ER, P)
+        # ---- capped exact rerank: only the rw best estimates fetch raw
+        # vectors; the rest keep their estimates ----
+        if rw == er:
+            rr_slots = None
+            rr_ok, rr_node, est_rr = rerank, nbr_safe, est
+        else:
+            rr_slots = top_k_smallest(torch.where(rerank, est, FLOAT_MAX),
+                                      rw)[1]                      # (Q, rw)
+            rr_ok = rerank.gather(1, rr_slots)
+            rr_node = nbr_safe.gather(1, rr_slots)
+            est_rr = est.gather(1, rr_slots)
+        rr_vecs = raw[rr_node]                                   # (Q, rw, P)
         exact_rr = estimate.exact_l2_sq(qpad, qnorm, rr_vecs,
                                         (rr_vecs * rr_vecs).sum(dim=-1))
 
         # ---- result heap pushes: reranked candidates + popped nodes ----
         pop_in_res = ((pop_ids[:, :, None] == res_ids[:, None, :])
                       & (pop_ids >= 0)[:, :, None]).any(dim=-1)
-        rr_in_res = ((nbr_safe[:, :, None] == res_ids[:, None, :])
-                     & rerank[:, :, None]).any(dim=-1)
-        push_ids = torch.cat([nbr_safe.int(), cur_safe.int()], dim=1)
+        rr_in_res = ((rr_node[:, :, None] == res_ids[:, None, :])
+                     & rr_ok[:, :, None]).any(dim=-1)
+        push_ids = torch.cat([rr_node.int(), cur_safe.int()], dim=1)
         push_d = torch.cat([
-            torch.where(rerank & ~rr_in_res, exact_rr, FLOAT_MAX),
+            torch.where(rr_ok & ~rr_in_res, exact_rr, FLOAT_MAX),
             torch.where(expand_e & ~pop_in_res, d_qp_sq, FLOAT_MAX),
         ], dim=1)
         new_ids, new_d, new_step = _merge_results(
@@ -307,7 +320,11 @@ def search_batch(raw, norm_sq, neighbors: NeighborStore, entry_candidates,
         dabs_thresh = torch.where(d_k_new < FLOAT_MAX, gamma_q * d_k_new,
                                   FLOAT_MAX)[:, None]
         # reranked entries carry exact distances as beam priority
-        enq_val = torch.where(rerank, exact_rr, est)
+        if rr_slots is None:
+            enq_val = torch.where(rerank, exact_rr, est)
+        else:
+            enq_val = est.scatter(1, rr_slots,
+                                  torch.where(rr_ok, exact_rr, est_rr))
         enq_lower = torch.where(warmup[:, None], enq_val, lower)
         enq = cand_ok & (enq_val < dabs_thresh)
         all_est = torch.cat([beam_est, torch.where(enq, enq_val, FLOAT_MAX)],
@@ -321,8 +338,9 @@ def search_batch(raw, norm_sq, neighbors: NeighborStore, entry_candidates,
         beam_lower = torch.where(active[:, None], beam_lower_new, beam_lower)
 
         # ---- online gamma_q adaptation ----
-        contrib = rerank & ~warmup[:, None] & (exact_rr > EPS_SMALL)
-        ratio = torch.where(contrib, est / exact_rr.clamp_min(EPS_SMALL), 0.0)
+        contrib = rr_ok & ~warmup[:, None] & (exact_rr > EPS_SMALL)
+        ratio = torch.where(contrib, est_rr / exact_rr.clamp_min(EPS_SMALL),
+                            0.0)
         ratio_sum = ratio_sum + torch.where(expand, ratio.sum(dim=1), 0.0)
         ratio_sq = ratio_sq + torch.where(expand, (ratio * ratio).sum(dim=1),
                                           0.0)

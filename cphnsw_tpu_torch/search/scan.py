@@ -1,22 +1,29 @@
 """Full-database scan: store layout, calibration, candidate budget, search.
 
-PyTorch counterpart of ``cphnsw_tpu/search/scan.py`` for the fused path.
-The estimator algebra is unchanged: per query, the calibrated distance
-estimate is an affine function of fs = <codes_u, q_u>, folded into
+PyTorch counterpart of ``cphnsw_tpu/search/scan.py``.  The estimator
+algebra is unchanged: per query, the calibrated distance estimate is an
+affine function of fs = <codes_u, q_u>, folded into
 
     score = (w_fs * g) * fs + sum_{a<5} y_aux[a] * node_aux[a]
 
 so one int8 contraction plus a rank-5 node-constant term ranks every row
-(``fold_node_constants`` / ``_query_side``).  Search streams either the
-int8 rerank sketch (sketch mode, the default: ``SKETCH_SCAN_MIN_C = 0``)
-or the unpacked RaBitQ codes (estimate mode) through the fused scan+select
-kernel (``kernels/scan_keys.py``), decodes the per-bin top-4 keys to row
-ids and reranks the survivors with exact f32 distances.
+(``fold_node_constants`` / ``_query_side``).  ``scan_search`` has the JAX
+package's three selections:
 
-The JAX package's chunked XLA selection (``_bin_plan``, ``_binned_keys``,
-``exact_select``, the non-uniform decode) and the bf16 sketch are not
-ported; ``chunk_plan`` is kept only for the ``top_c`` clamp in
-``ScanIndex.search_batch``.
+  * fused (the default, and what every index runs): the fused scan+select
+    kernel (``kernels/scan_keys.py``) streams either the int8 rerank sketch
+    (sketch mode: ``SKETCH_SCAN_MIN_C = 0``) or the unpacked RaBitQ codes
+    (estimate mode) and keeps each bin's four smallest keys;
+  * chunked (``fused=False``, the JAX package's path off the TPU): per
+    chunk of rows, an int8 product, the score in the kernel's rounding
+    order and each bin's two smallest keys (``_binned_keys``), decoded
+    through per-bin base and stride tables;
+  * exact (``exact_select=True``): the exact top_c of every chunk.
+
+Each decodes its keys to row ids and reranks them with exact f32
+distances, two-stage through a bf16 or int8 sketch above
+``TWO_STAGE_MIN_C`` candidates.  Keys stay signed int32 throughout (the
+JAX package's chunked path maps them to u32; the order is the same).
 """
 
 from __future__ import annotations
@@ -28,23 +35,30 @@ import torch
 
 from cphnsw_tpu_torch.calibration import huber
 from cphnsw_tpu_torch.kernels.scan_keys import (
-    GROUP_MASK, PAD_SCORE, fused_bin_plan, fused_scan_keys)
+    GROUP_MASK, I32_MAX, NOT_GROUP, PAD_SCORE, folded_scores, fused_bin_plan,
+    fused_scan_keys, signed_keys)
 from cphnsw_tpu_torch.ops import estimate, hadamard, pack, quantize
 from cphnsw_tpu_torch.ops.estimate import full_fp32
 from cphnsw_tpu_torch.ops.quantize import EPS_MEDIUM
 
 FLOAT_MAX = float(torch.finfo(torch.float32).max)
-# Score-buffer budget (Q * rows) of the chunk plan kept for the top_c clamp
-# and of the exact top-k used by the budget derivation.
+# Score-buffer budget (Q * rows) per chunk of the chunked and exact
+# selections, of the top_c clamp and of the budget derivation's exact top-k.
 CHUNK_ELEMENTS = 1 << 28
 MIN_CHUNK = 1 << 15
 # rows per encode step (bounds the CAQ intermediates during build)
 ENCODE_CHUNK = 1 << 17
+# Chunked selection: each chunk's bins keep their two smallest keys, over
+# BIN_FACTOR * top_c bins in all (at least BINS_MIN), so a candidate at the
+# deepest needed rank is lost with ~(1/BIN_FACTOR)^2 / 2 ~ 0.8%.
+BIN_FACTOR = 8
+BINS_MIN = 2048
 # Gathered-candidate f32 elements per rerank piece (Q * piece * P).
 RERANK_ELEMENTS = 1 << 28
-# Candidate count above which an estimate-mode rerank goes two-stage
-# through the int8 sketch.
+# Candidate count above which the rerank goes two-stage through a sketch.
 TWO_STAGE_MIN_C = 4096
+# The sketch is bf16 while the raw store is at most this large, else int8.
+BF16_SKETCH_MAX_RAW_BYTES = 3 << 30
 # Candidate budget from which search streams the int8 sketch through the
 # kernel instead of the packed codes: 0 = always (the sketch scan costs
 # the same kernel pass and its near-exact stage 1 keeps recall).
@@ -61,12 +75,13 @@ class ScanArrays(NamedTuple):
 
 
 class RerankSketch(NamedTuple):
-    """int8 stage-1 store: codes (N_pad, P) int8 with per-dimension
+    """Reduced-precision stage-1 rerank store: (N_pad, P) bf16 with the raw
+    store's squared norms and scale None, or int8 codes with per-dimension
     scales (P,) f32 and the squared norms of the sketch points."""
 
     store: torch.Tensor
     norm_sq: torch.Tensor
-    scale: torch.Tensor
+    scale: torch.Tensor | None
 
 
 def _sqrt_f32(p: int) -> float:
@@ -111,15 +126,23 @@ def encode_scan_store(raw, centroid, signs, bits: int,
 
 
 def chunk_plan(n_pad: int, q: int) -> tuple[int, int, int]:
-    """(chunk_rows, n_equal, remainder_rows) of the JAX package's chunked
-    scan; search uses chunk_rows only to clamp top_c as that package
-    does."""
+    """(chunk_rows, n_equal, remainder_rows) of the chunked and exact
+    selections: chunk_rows keeps the (Q, chunk) score buffer under
+    CHUNK_ELEMENTS; ``ScanIndex`` also clamps top_c to it, as the JAX
+    package does."""
     if n_pad <= MIN_CHUNK:
         return n_pad, 1, 0
     chunk = max(MIN_CHUNK, (CHUNK_ELEMENTS // max(q, 1)) // 256 * 256)
     chunk = min(chunk, n_pad)
     n_eq = n_pad // chunk
     return chunk, n_eq, n_pad - n_eq * chunk
+
+
+def _chunk_slices(n_pad: int, max_rows: int) -> list[tuple[int, int]]:
+    """(start, size) slices of at most max_rows (a multiple of 256)
+    covering n_pad rows."""
+    chunk = min(n_pad, max(256, max_rows // 256 * 256))
+    return [(s, min(chunk, n_pad - s)) for s in range(0, n_pad, chunk)]
 
 
 def fold_node_constants(nop, ip_qo, ip_cp, wpc, ip_qo_floor: float, n: int):
@@ -163,17 +186,29 @@ def _query_side(qpad, signs, affine_a, affine_b, kappa: float):
     return qc, w_fs, y_aux
 
 
+def int8_product(q_i8: torch.Tensor, codes_i8: torch.Tensor):
+    """(Q, rows) f32 fs = q_i8 @ codes_i8.T, exact (|fs| < 2^24 for
+    levels <= 15 and P < 74,565): ``torch._int_mm`` on CUDA, with Q padded
+    to a multiple of 8 above 16 and P to a multiple of 8 (zeros change no
+    sum); an fp32 product with TF32 off elsewhere."""
+    q, p = q_i8.shape
+    if q_i8.device.type != "cuda":
+        with full_fp32():
+            return q_i8.float() @ codes_i8.float().T
+    q_mm = max(24, -(-q // 8) * 8)
+    p_mm = -(-p // 8) * 8
+    q_pad = torch.nn.functional.pad(q_i8, (0, p_mm - p, 0, q_mm - q))
+    codes = torch.nn.functional.pad(codes_i8, (0, p_mm - p))
+    return torch._int_mm(q_pad, codes.T)[:q].float()
+
+
 def _chunk_scores(planes_c, aux_c, q_u, w_fs, y_aux, p: int):
-    """(Q, chunk) folded ranking scores for one packed code chunk (plain
-    torch; only the budget derivation uses it).  fs is an fp32 product of
-    integers below 15 * 15 * P < 2^24, hence exact."""
+    """(Q, chunk) folded ranking scores for one packed code chunk: the
+    exact int8 product, then the kernel's rounding order, which is the
+    order XLA-CPU gives the JAX package's jitted ``_chunk_scores``."""
     codes_c = pack.unpack_codes_i8(planes_c, p)
-    with full_fp32():
-        fs = q_u.float() @ codes_c.float().T
-    score = (w_fs[:, None] * aux_c[5][None, :]) * fs
-    for a in range(5):
-        score = score + y_aux[:, a, None] * aux_c[a][None, :]
-    return score
+    return folded_scores(int8_product(q_u.to(torch.int8), codes_c), aux_c,
+                         w_fs, y_aux)
 
 
 # ----------------------------------------------------------- calibration
@@ -263,17 +298,16 @@ def _true_topk_chunked(raw, norm_sq, qpad, qnorm, n: int, k: int):
     n_pad = raw.shape[0]
     q = qpad.shape[0]
     max_rows = max(MIN_CHUNK, CHUNK_ELEMENTS // max(q, 1))
-    step = min(n_pad, max(256, max_rows // 256 * 256))
     best_neg = best_ids = None
-    for start in range(0, n_pad, step):
-        vecs = raw[start:start + step]
+    for start, size in _chunk_slices(n_pad, max_rows):
+        vecs = raw[start:start + size]
         with full_fp32():
-            d = qnorm[:, None] + norm_sq[None, start:start + step] - 2.0 * (
+            d = qnorm[:, None] + norm_sq[None, start:start + size] - 2.0 * (
                 qpad @ vecs.T)
-        ids_local = torch.arange(start, start + vecs.shape[0],
-                                 dtype=torch.int64, device=raw.device)
+        ids_local = torch.arange(start, start + size, dtype=torch.int64,
+                                 device=raw.device)
         d = torch.where(ids_local[None, :] < n, d, FLOAT_MAX)
-        neg, idx = torch.topk(-d, min(k, vecs.shape[0]), dim=1)
+        neg, idx = torch.topk(-d, min(k, size), dim=1)
         ids = ids_local[idx]
         if best_neg is not None:
             neg = torch.cat([best_neg, neg], dim=1)
@@ -375,10 +409,17 @@ def budget_from_cohorts(per_cohort: list, anchors) -> CandidateBudget:
 
 
 # ---------------------------------------------------------------- search
-def make_rerank_sketch(raw: torch.Tensor) -> RerankSketch:
-    """int8 sketch of a raw store: per-dimension scales max|x|/127, codes
-    round(x/scale) clipped to [-127, 127], norms of the sketch points.
-    Row-chunked so no f32 store-sized transient exists."""
+def make_rerank_sketch(raw: torch.Tensor, norm_sq: torch.Tensor,
+                       force_int8: bool = False) -> RerankSketch:
+    """Stage-1 sketch of a raw store: bf16 rows with the raw norms while
+    the store holds at most BF16_SKETCH_MAX_RAW_BYTES (and int8 is not
+    forced), else int8 codes round(x / scale) clipped to [-127, 127] with
+    per-dimension scales max|x| / 127 and the norms of the sketch points.
+    The sketch scan needs the int8 form.  Row-chunked so no f32
+    store-sized transient exists."""
+    if not force_int8 and \
+            raw.numel() * raw.element_size() <= BF16_SKETCH_MAX_RAW_BYTES:
+        return RerankSketch(raw.to(torch.bfloat16), norm_sq, None)
     scale = raw.abs().amax(dim=0).clamp_min(1e-12) / 127.0
     step = 1 << 20
     codes = torch.empty(raw.shape, dtype=torch.int8, device=raw.device)
@@ -401,7 +442,8 @@ def _candidate_topk(raw, norm_sq, qeff, qnorm, cand_ids, n: int, kk: int,
                     elems: int):
     """Top-kk of gathered-candidate L2 distances in pieces of at most
     `elems` gathered elements; returns (neg_dists (Q, kk), ids (Q, kk)).
-    Low-precision rows (the int8 sketch) are upcast after the gather."""
+    Low-precision rows (a sketch) are upcast to f32 after the gather, so
+    distances accumulate in f32 whatever the gather's precision."""
     q, c = cand_ids.shape
     p = raw.shape[1]
     piece = max(kk, elems // max(q * p, 1))
@@ -432,24 +474,36 @@ def _candidate_topk(raw, norm_sq, qeff, qnorm, cand_ids, n: int, kk: int,
 def _rerank(raw, norm_sq, qpad, qnorm, cand_ids, n: int, k: int,
             sketch: RerankSketch | None = None):
     """Exact-L2 rerank of candidates; pad candidates map to id -1 and
-    FLOAT_MAX.  With a sketch and many candidates the int8 sketch first
-    selects _rerank_survivors(k, C) survivors."""
+    FLOAT_MAX.  With a sketch and at least TWO_STAGE_MIN_C candidates, the
+    sketch's distances first select _rerank_survivors(k, C) survivors: a
+    bf16 sketch against the query rounded to bf16 (pieces of
+    2 * RERANK_ELEMENTS), an int8 one against the query times its scales
+    (pieces of 4 * RERANK_ELEMENTS)."""
     c = cand_ids.shape[1]
     if sketch is not None and c >= TWO_STAGE_MIN_C:
         surv = _rerank_survivors(k, c)
-        qeff = qpad * sketch.scale[None, :]
+        if sketch.scale is None:
+            qeff = qpad.to(torch.bfloat16).float()
+            elems = 2 * RERANK_ELEMENTS
+        else:
+            qeff = qpad * sketch.scale[None, :]
+            elems = 4 * RERANK_ELEMENTS
         _, cand_ids = _candidate_topk(sketch.store, sketch.norm_sq, qeff,
-                                      qnorm, cand_ids, n, surv,
-                                      4 * RERANK_ELEMENTS)
+                                      qnorm, cand_ids, n, surv, elems)
     neg_d, ids = _candidate_topk(raw, norm_sq, qpad, qnorm, cand_ids, n, k,
                                  RERANK_ELEMENTS)
     ids = torch.where(neg_d > -FLOAT_MAX, ids, -1)
     return ids, -neg_d
 
 
-def _decode_keys(cat_key: torch.Tensor, top_c: int, bins: int):
-    """The smallest top_c signed keys across all bins, decoded to row ids:
-    id = group * bins + bin, group in the key's low GROUP_BITS bits."""
+def _decode_keys(cat_key: torch.Tensor, top_c: int, bins: int | None = None,
+                 bin_base: torch.Tensor | None = None,
+                 bin_stride: torch.Tensor | None = None):
+    """The smallest top_c signed keys across all key columns, decoded to
+    row ids, id = group * stride + base with the group in the key's low
+    GROUP_BITS bits: stride = bins and base = column % bins for the
+    kernel's uniform layout, else the column's entries of bin_stride and
+    bin_base (stride 0 for a chunk of one key per row)."""
     w = cat_key.shape[1]
     tc = min(top_c, w)
     if tc < w:
@@ -458,7 +512,82 @@ def _decode_keys(cat_key: torch.Tensor, top_c: int, bins: int):
         keep = torch.arange(w, device=cat_key.device).expand_as(cat_key)
         kept = cat_key
     gi = (kept & GROUP_MASK).to(torch.int64)
-    return gi * bins + keep % bins
+    if bins is not None:
+        return gi * bins + keep % bins
+    return gi * bin_stride[keep] + bin_base[keep]
+
+
+def _select(score: torch.Tensor, top_c: int):
+    """Exact per-chunk selection (the reference path): (negated scores,
+    column indices) of the top_c smallest scores."""
+    return torch.topk(-score, min(top_c, score.shape[1]), dim=1)
+
+
+def _bin_plan(size: int, want_bins: int) -> tuple[int, int]:
+    """(group, bins) of the chunked selection over a `size`-row chunk:
+    bins >= want_bins (capture), group <= 2^GROUP_BITS (the group index
+    packs into the low key bits) and a power of two dividing size."""
+    if want_bins >= size:
+        return 1, size
+    g = min(size // want_bins, GROUP_MASK + 1)
+    g = 1 << (g.bit_length() - 1)
+    while size % g:
+        g >>= 1
+    return g, size // g
+
+
+def plan_slices(n_pad: int, chunk: int, n_eq: int, rem: int):
+    """(start, size) of the chunks of a chunk plan: n_eq chunks of `chunk`
+    rows, then `rem` rows; the plan must cover n_pad rows."""
+    if n_eq * chunk + rem != n_pad:
+        raise ValueError(f"chunk plan {n_eq} x {chunk} + {rem} does not "
+                         f"cover {n_pad} rows")
+    return [(c * chunk, chunk) for c in range(n_eq)] + (
+        [(n_eq * chunk, rem)] if rem else [])
+
+
+def chunk_layout(slices, top_c: int):
+    """(start, size, group, bins) of each chunk of the chunked selection:
+    capture depends on the total bin count, so BIN_FACTOR * top_c wanted
+    bins (at least BINS_MIN) split over the chunks."""
+    want_c = -(-max(BINS_MIN, BIN_FACTOR * top_c) // len(slices))
+    return [(start, size, *_bin_plan(size, want_c)) for start, size in slices]
+
+
+def decode_chunk_keys(keys_parts, layout, top_c: int) -> torch.Tensor:
+    """Row ids of the smallest top_c of the chunks' binned keys: lane b of
+    a chunk at `start` decodes to start + group * bins + b (stride 0 where
+    the chunk has one group: a full key per row)."""
+    base, stride = [], []
+    for start, _, g, bins in layout:
+        lane = np.tile(np.arange(bins), 1 if g == 1 else 2)
+        base.append(start + lane)
+        stride.append(np.full(lane.shape, 0 if g == 1 else bins))
+    dev = keys_parts[0].device
+    return _decode_keys(
+        torch.cat(keys_parts, dim=1), top_c,
+        bin_base=torch.from_numpy(np.concatenate(base)).to(dev),
+        bin_stride=torch.from_numpy(np.concatenate(stride)).to(dev))
+
+
+def _binned_keys(score: torch.Tensor, g: int, bins: int) -> torch.Tensor:
+    """Signed keys of one chunk's scores, row r in bin r % bins and group
+    r // bins: with g == 1 the full key of every row (no group bits, so no
+    ties the exact per-shard merge would see); else (Q, 2 * bins), each
+    bin's two smallest keys with the group index in the low GROUP_BITS
+    (unique within a bin, so masking the minimum out yields the second)."""
+    keys = signed_keys(score)
+    if g == 1:
+        return keys
+    q = score.shape[0]
+    gidx = torch.arange(g, dtype=torch.int32, device=score.device)
+    keys = (keys & NOT_GROUP).reshape(q, g, bins) | gidx[None, :, None]
+    m1 = keys.amin(dim=1)
+    if g == 2:
+        m2 = keys.amax(dim=1)
+    else:
+        m2 = torch.where(keys == m1[:, None, :], I32_MAX, keys).amin(dim=1)
+    return torch.cat([m1, m2], dim=1)
 
 
 def sketch_store_operands(sketch: RerankSketch, n: int, rows_kpad: int):
@@ -506,34 +635,70 @@ def sketch_query(qpad: torch.Tensor, scale: torch.Tensor):
 
 def scan_search(arrays: ScanArrays, queries, signs, affine_a, affine_b,
                 n: int, kappa: float, k: int, top_c: int,
+                chunk: int | None = None, n_eq: int = 1, rem: int = 0,
+                exact_select: bool = False, fused: bool = True,
                 sketch: RerankSketch | None = None):
-    """Scan all rows through the fused kernel, select, exact-rerank.
+    """Scan all rows, select candidates, exact-rerank them.
 
     queries: (Q, dim <= P); returns (ids (Q, k) int64, dists (Q, k) f32).
-    With a sketch (and top_c >= SKETCH_SCAN_MIN_C) the kernel streams the
-    int8 sketch store and only _rerank_survivors(k, top_c) survivors are
-    reranked; otherwise it streams the unpacked RaBitQ codes (estimate
-    mode) and top_c candidates are reranked."""
+    fused: the kernel scans the whole store.  With an int8 sketch (and
+    top_c >= SKETCH_SCAN_MIN_C) it streams the sketch and only
+    _rerank_survivors(k, top_c) survivors are reranked; otherwise it
+    streams the unpacked RaBitQ codes (estimate mode) and top_c candidates
+    are reranked, two-stage through a bf16 sketch if one is given.
+    fused=False: the chunked selection over the chunk plan (chunk, n_eq,
+    rem) (default ``chunk_plan(N_pad, Q)``); exact_select: the exact top_c
+    of every chunk."""
     n_pad, p = arrays.raw.shape
     qpad = hadamard.pad_to(queries.float(), p)
     qnorm = (qpad * qpad).sum(dim=-1)
 
-    if sketch is not None and top_c >= SKETCH_SCAN_MIN_C:
+    def rerank(cand_ids, sketch=sketch):
+        return _rerank(arrays.raw, arrays.norm_sq, qpad, qnorm, cand_ids, n,
+                       k, sketch=sketch)
+
+    if (fused and not exact_select and sketch is not None
+            and sketch.scale is not None and top_c >= SKETCH_SCAN_MIN_C):
         surv = _rerank_survivors(k, top_c)
         bins, _, rows_kpad = fused_bin_plan(n_pad, surv)
         codes_s, aux_s = sketch_store_operands(sketch, n, rows_kpad)
         q8, w_fs_s, y_aux_s = sketch_query(qpad, sketch.scale)
         cat_key = fused_scan_keys(codes_s, aux_s, q8, w_fs_s, y_aux_s, bins)
-        cand_ids = _decode_keys(cat_key, surv, bins)
-        return _rerank(arrays.raw, arrays.norm_sq, qpad, qnorm, cand_ids, n,
-                       k)
+        return rerank(_decode_keys(cat_key, surv, bins), sketch=None)
 
     qc, w_fs, y_aux = _query_side(qpad, signs, affine_a, affine_b, kappa)
-    bins, _, rows_kpad = fused_bin_plan(n_pad, top_c)
-    codes_i8, aux_k = estimate_store_operands(arrays.planes, arrays.node_aux,
-                                              rows_kpad, p)
-    cat_key = fused_scan_keys(codes_i8, aux_k, qc.q_u.to(torch.int8), w_fs,
-                              y_aux, bins)
-    cand_ids = _decode_keys(cat_key, top_c, bins)
-    return _rerank(arrays.raw, arrays.norm_sq, qpad, qnorm, cand_ids, n, k,
-                   sketch=sketch)
+    if fused and not exact_select:
+        bins, _, rows_kpad = fused_bin_plan(n_pad, top_c)
+        codes_i8, aux_k = estimate_store_operands(
+            arrays.planes, arrays.node_aux, rows_kpad, p)
+        cat_key = fused_scan_keys(codes_i8, aux_k, qc.q_u.to(torch.int8),
+                                  w_fs, y_aux, bins)
+        return rerank(_decode_keys(cat_key, top_c, bins))
+
+    if chunk is None:
+        chunk, n_eq, rem = chunk_plan(n_pad, qpad.shape[0])
+    slices = plan_slices(n_pad, chunk, n_eq, rem)
+
+    def chunk_score(start, size):
+        return _chunk_scores(arrays.planes[start:start + size],
+                             arrays.node_aux[:, start:start + size], qc.q_u,
+                             w_fs, y_aux, p)
+
+    if exact_select:
+        parts_neg, parts_ids = [], []
+        for start, size in slices:
+            neg, idx = _select(chunk_score(start, size), top_c)
+            parts_neg.append(neg)
+            parts_ids.append(idx + start)
+        cat_neg = torch.cat(parts_neg, dim=1)
+        cand_ids = torch.cat(parts_ids, dim=1)
+        if cat_neg.shape[1] > top_c:
+            keep = torch.topk(cat_neg, top_c, dim=1)[1]
+            cand_ids = cand_ids.gather(1, keep)
+        return rerank(cand_ids)
+
+    # chunked: per chunk each bin's two smallest keys
+    layout = chunk_layout(slices, top_c)
+    keys = [_binned_keys(chunk_score(start, size), g, bins)
+            for start, size, g, bins in layout]
+    return rerank(decode_chunk_keys(keys, layout, top_c))

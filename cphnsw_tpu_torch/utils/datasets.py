@@ -1,11 +1,15 @@
 """Dataset loaders (fvecs/ivecs, npy sets) and the synthetic generator.
 
-PyTorch-side counterpart of ``cphnsw_tpu/utils/datasets.py``.  The
-synthetic data follow the JAX package's host numpy recipe, so the same
-seed gives bit-identical base and query vectors.  Ground truth is the
-same host numpy computation by default; ``gt_device`` computes it on a
-torch device instead, by chunked fp32 products with TF32 off (the host
-computation does not scale to a million rows and thousands of queries).
+PyTorch-side counterpart of ``cphnsw_tpu/utils/datasets.py``.  Synthetic
+data follow the JAX package's two recipes, so the same seed gives the same
+base and query vectors: the host numpy recipe (bit-identical), and, for a
+store of at least DEVICE_DATA_MIN_ELEMENTS elements on a CUDA device, the
+JAX package's accelerator recipe drawn from JAX's Threefry stream on the
+card (``_device_synthetic``: integer draws equal, normals within a few
+ulps of ``jax.random`` on the CPU).  Ground truth is the host numpy
+computation by default; ``gt_device`` computes it on a torch device
+instead, by chunked fp32 products with TF32 off (the host computation does
+not scale to a million rows and thousands of queries).
 """
 
 from __future__ import annotations
@@ -15,7 +19,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from cphnsw_tpu_torch.ops import threefry
 from cphnsw_tpu_torch.ops.estimate import full_fp32
+
+# Synthetic stores from this many elements (n * dim) up are generated on a
+# CUDA device from JAX's Threefry stream, as the JAX package generates them
+# on its accelerator: the JAX package's threshold.
+DEVICE_DATA_MIN_ELEMENTS = 64 << 20
 
 FVECS_DATASETS = {
     "sift1m": {
@@ -142,17 +152,57 @@ def synthetic_shape(name: str, n: int = 100_000,
     return n, dim, metric
 
 
+def _device_synthetic(n: int, dim: int, n_queries: int, n_clusters: int,
+                      seed: int, device):
+    """The JAX package's accelerator recipe (``_device_synthetic`` there) on
+    `device`: from ``split(PRNGKey(seed), 5)``, normal centres * 3, a
+    randint cluster per row, base = centre + normal noise, queries = the
+    rows of a permutation's first n_queries + 0.1 * normal noise.  Returns
+    (base (n, dim) f32 tensor on `device`, queries (n_queries, dim) numpy
+    f32)."""
+    kc, ka, kn, kq, kqn = threefry.split(threefry.prng_key(seed), 5)
+    centers = threefry.normal(kc, (n_clusters, dim), device) * 3.0
+    base = centers[threefry.randint(ka, n, 0, n_clusters, device)]
+    base += threefry.normal(kn, (n, dim), device)
+    qi = threefry.permutation(kq, n, device)[:n_queries]
+    queries = base[qi] + 0.1 * threefry.normal(kqn, (n_queries, dim), device)
+    return base, queries.cpu().numpy()
+
+
 def make_synthetic(name: str = "synthetic", n: int = 100_000,
                    dim: int = 128, n_queries: int = 1000, gt_k: int = 100,
                    n_clusters: int = 256, seed: int = 0,
                    gt_device=None) -> dict:
     """Clustered gaussian data with exact ground truth.
 
-    `name` may encode size (``synthetic_shape``).  Base and queries come
-    from the JAX package's host numpy recipe (bit-identical for the same
-    seed); the ground truth is computed on the host, or on `gt_device` if
-    given."""
+    `name` may encode size (``synthetic_shape``).  On a CUDA `gt_device`,
+    a store of at least DEVICE_DATA_MIN_ELEMENTS elements is drawn there
+    from JAX's Threefry stream (``_device_synthetic``), its ground truth
+    computed there, and the result also holds ``base_dev_factory``, which
+    draws the store on the device again (a store kept alive beside a built
+    index would double its footprint).  Otherwise base and queries come
+    from the host numpy recipe (bit-identical for the same seed) and the
+    ground truth is computed on the host, or on `gt_device` if given."""
     n, dim, metric = synthetic_shape(name, n, dim)
+    dev = None if gt_device is None else torch.device(gt_device)
+    if (dev is not None and dev.type == "cuda"
+            and n * dim >= DEVICE_DATA_MIN_ELEMENTS):
+        base_dev, queries = _device_synthetic(n, dim, n_queries, n_clusters,
+                                              seed, dev)
+        gt = device_groundtruth(base_dev, queries, gt_k, metric, dev)
+
+        def base_dev_factory():
+            return _device_synthetic(n, dim, n_queries, n_clusters, seed,
+                                     dev)[0]
+
+        return {
+            "base": base_dev.cpu().numpy(),
+            "queries": queries,
+            "groundtruth": gt,
+            "dim": dim,
+            "metric": metric,
+            "base_dev_factory": base_dev_factory,
+        }
     rng = np.random.default_rng(seed)
     centers = rng.standard_normal((n_clusters, dim)).astype(np.float32) * 3.0
     base = centers[rng.integers(0, n_clusters, n)] + rng.standard_normal(

@@ -25,12 +25,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from cphnsw_tpu_torch.utils.datasets import DEVICE_DATA_MIN_ELEMENTS
+
 DEFAULT_BITS = (1, 2, 4)
 ADR_AT = 10
-# Synthetic stores from this many elements (n * dim) up get their ground
-# truth on the CUDA device and build from a tensor already on it, the
-# JAX package's threshold (cphnsw_tpu/utils/datasets.py).
-DEVICE_DATA_MIN_ELEMENTS = 64 << 20
 
 
 @dataclass
@@ -252,8 +250,9 @@ def run_benchmark(
     """Benchmark every bit width on one dataset on `device`; writes
     <output_dir>/<dataset>_results.json (suffixed _<engine> when the
     engine is forced) and returns its contents.  Synthetic stores of at
-    least DEVICE_DATA_MIN_ELEMENTS on a CUDA device get their ground truth
-    on the device and build from a device tensor."""
+    least DEVICE_DATA_MIN_ELEMENTS on a CUDA device are drawn on the device
+    from JAX's Threefry stream, get their ground truth there and build
+    from a device tensor (``make_synthetic``)."""
     from cphnsw_tpu_torch.api.scan_index import resolve_device
     from cphnsw_tpu_torch.utils.datasets import load_dataset, synthetic_shape
 
@@ -266,17 +265,13 @@ def run_benchmark(
                       gt_device=dev if on_device else None)
     truth = ds["groundtruth"].astype(np.int64)
     metric = ds.get("metric", "l2")
-    factory = None
-    if on_device:
-        def factory():
-            return torch.from_numpy(ds["base"]).to(dev)
 
     cases = [
         bench_one_case(
             ds["base"], ds["queries"], truth,
             dim=ds["dim"], bits=bits, k=k, n_runs=n_runs,
             profile_dir=profile_dir, engine=engine, metric=metric,
-            base_dev_factory=factory, device=dev,
+            base_dev_factory=ds.get("base_dev_factory"), device=dev,
         )
         for bits in (bit_widths or DEFAULT_BITS)
     ]

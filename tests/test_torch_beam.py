@@ -99,6 +99,29 @@ def test_beam_matches_jax(pair, data, hash_bits):
         assert len(np.unique(row[row >= 0])) == (row >= 0).sum()
 
 
+def test_beam_rerank_width_and_seeds_match_jax(pair, data):
+    """rerank_width = 8 of the E * R = 64 candidates per step get the
+    exact rerank, 2 seeds per query; rerank_width >= E * R is the same
+    search as 0 (rerank everything)."""
+    jidx, tidx = pair
+    qpad = np.pad(data[1], ((0, 0), (0, tidx._padded - DIM)))
+    kw = dict(bits=tidx._bits, k=K, beam_cap=2 * R, max_steps=96,
+              expand_width=4)
+    args_t = (tidx._raw, tidx._norm_sq, tidx._neighbors,
+              tidx._entry_candidates, tidx._signs, torch.from_numpy(qpad),
+              tidx._params)
+    ids_j, d_j = jbeam.search_batch(
+        jidx._raw, jidx._norm_sq, jidx._neighbors, jidx._entry_candidates,
+        jidx._signs, jnp.asarray(qpad), jidx._params, rerank_width=8,
+        n_seeds=2, **kw)
+    ids_t, d_t = tbeam.search_batch(*args_t, rerank_width=8, n_seeds=2,
+                                    **kw)
+    check_agree(ids_t, d_t, ids_j, d_j, qpad, tidx._raw.numpy())
+    full = tbeam.search_batch(*args_t, **kw)
+    wide = tbeam.search_batch(*args_t, rerank_width=4 * R, **kw)
+    assert torch.equal(full[0], wide[0]) and torch.equal(full[1], wide[1])
+
+
 def test_index_search_matches_jax(pair, data):
     jidx, tidx = pair
     x, q = data

@@ -224,3 +224,87 @@ def test_cuda_sharded_graph_matches_cpu(cuda_device, tmp_path):
     d = ((queries[:, None, :] - base[None]) ** 2).sum(-1)
     gt = np.argsort(d, axis=1)[:, :10]
     assert (ids_g[:, :, None] == gt[:, None, :]).any(-1).mean() >= 0.9
+
+
+@pytest.mark.cuda
+def test_threefry_recipe_cuda_matches_cpu(cuda_device, monkeypatch):
+    """The Threefry recipe drawn on the card against the CPU: equal integer
+    draws and data; make_synthetic on a CUDA device takes it (threshold
+    lowered to this size) and hands out a device factory."""
+    from cphnsw_tpu_torch.ops import threefry
+    from cphnsw_tpu_torch.utils import datasets
+
+    _, ka, kn, kq, _ = threefry.split(threefry.prng_key(5), 5)
+    assert torch.equal(threefry.randint(ka, 4096, 0, 100, "cuda").cpu(),
+                       threefry.randint(ka, 4096, 0, 100, "cpu"))
+    assert torch.equal(threefry.permutation(kq, 4096, "cuda").cpu(),
+                       threefry.permutation(kq, 4096, "cpu"))
+    # normals within 4 ulps of the CPU's (the tests' bound against JAX)
+    got = threefry.normal(kn, (4096, 64), "cuda").cpu()
+    want = threefry.normal(kn, (4096, 64), "cpu")
+    spacing = np.spacing(np.abs(want.numpy()))
+    assert (np.abs((got - want).numpy()) <= 4 * spacing).all()
+    monkeypatch.setattr(datasets, "DEVICE_DATA_MIN_ELEMENTS", 4096 * 64)
+    ds = datasets.make_synthetic("synthetic-4096-64d", n=4096, n_queries=50,
+                                 gt_k=10, n_clusters=32, seed=2,
+                                 gt_device=cuda_device)
+    base, queries = datasets._device_synthetic(4096, 64, 50, 32, 2, "cpu")
+    # within 1e-5, a few ulps at the rows' magnitudes (|x| < 16)
+    np.testing.assert_allclose(ds["base"], base.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ds["queries"], queries, rtol=0, atol=1e-5)
+    assert torch.equal(ds["base_dev_factory"]().cpu(),
+                       torch.from_numpy(ds["base"]))
+    np.testing.assert_array_equal(
+        ds["groundtruth"],
+        datasets.device_groundtruth(ds["base"], ds["queries"], 10,
+                                    device="cpu"))
+
+
+@pytest.mark.cuda
+def test_chunked_and_exact_selection_cuda_matches_cpu(cuda_device):
+    """scan_search(fused=False) and exact_select on the card (torch._int_mm
+    products) against the same index on the CPU; neither launches the
+    kernel."""
+    from cphnsw_tpu_torch.search import scan
+
+    rng = np.random.default_rng(6)
+    centers = rng.standard_normal((16, 32)).astype(np.float32) * 3.0
+    base = centers[rng.integers(0, 16, 20_000)] + rng.standard_normal(
+        (20_000, 32)).astype(np.float32)
+    queries = torch.from_numpy(base[:100] + 0.05)
+    cpu = ScanIndex(32, bits=1, device="cpu").build(base).finalize()
+    gpu = ScanIndex(32, bits=1, device=cuda_device).load_state(
+        cpu._header(), dict(cpu._node_host, raw=cpu._arrays.raw.numpy(),
+                            centroid=cpu._centroid.numpy()))
+    for kw in (dict(fused=False, top_c=300), dict(fused=False, top_c=1500),
+               dict(exact_select=True, top_c=300),
+               dict(fused=False, top_c=4096, sketch="bf16")):
+        out = []
+        for idx in (cpu, gpu):
+            sketch = None
+            if kw.get("sketch"):
+                sketch = scan.make_rerank_sketch(idx._arrays.raw,
+                                                 idx._arrays.norm_sq)
+            before = scan_keys.launches
+            ids, _ = scan.scan_search(
+                idx._arrays, queries.to(idx._device), idx._signs,
+                idx._affine_a, idx._affine_b, idx._n, kappa=1.0, k=10,
+                **{**kw, "sketch": sketch})
+            assert scan_keys.launches == before
+            out.append(ids.cpu().numpy())
+        assert (out[0][:, :, None] == out[1][:, None, :]).any(-1).mean() \
+            >= 0.99, kw
+
+
+@pytest.mark.cuda
+def test_bruteforce_cuda_matches_cpu(cuda_device):
+    from cphnsw_tpu_torch.search import bruteforce
+
+    rng = np.random.default_rng(7)
+    centers = rng.standard_normal((32, 48)).astype(np.float32) * 3.0
+    base = centers[rng.integers(0, 32, 4000)] + rng.standard_normal(
+        (4000, 48)).astype(np.float32)
+    queries = base[rng.choice(4000, 50, replace=False)] + 0.1
+    ids = [bruteforce.BruteForceIndex(48, bits=1, device=dev).build(
+        base).search_batch(queries, k=10)[0] for dev in ("cpu", cuda_device)]
+    assert (ids[0][:, :, None] == ids[1][:, None, :]).any(-1).mean() >= 0.99

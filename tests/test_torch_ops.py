@@ -139,7 +139,9 @@ def test_rerank_sketch_int8_match():
     xj = jnp.asarray(x)
     sk_j = jscan.make_rerank_sketch(xj, jnp.sum(xj * xj, -1),
                                     force_int8=True)
-    sk_t = tscan.make_rerank_sketch(torch.from_numpy(x))
+    x_t = torch.from_numpy(x)
+    sk_t = tscan.make_rerank_sketch(x_t, (x_t * x_t).sum(-1),
+                                    force_int8=True)
     # scales: the same max / 127 in f32; XLA may round the division
     # differently by one ulp (rtol 1e-6)
     np.testing.assert_allclose(sk_t.scale.numpy(), np.asarray(sk_j.scale),

@@ -57,8 +57,8 @@ def test_sketch_mode_keys_match():
     n_pad = jscan.store_pad(N)
     bins, groups, rows_kpad = scan_keys.fused_bin_plan(n_pad, 512)
     assert groups > scan_keys.FUSED_TOPM  # the top-4 lattice really merges
-    sk = tscan.make_rerank_sketch(
-        torch.nn.functional.pad(torch.from_numpy(x), (0, 0, 0, n_pad - N)))
+    raw = torch.nn.functional.pad(torch.from_numpy(x), (0, 0, 0, n_pad - N))
+    sk = tscan.make_rerank_sketch(raw, (raw * raw).sum(-1), force_int8=True)
     codes, aux = tscan.sketch_store_operands(sk, N, rows_kpad)
     q = x[np.random.default_rng(1).choice(N, Q, replace=False)] + 0.05
     q8, w_fs, y_aux = tscan.sketch_query(torch.from_numpy(q), sk.scale)
