@@ -5,7 +5,14 @@
 Phases, in order; any failed check exits non-zero:
   1. environment: a CUDA device, the toolchain (torch, CUDA, nvcc, triton);
   2. build: compile csrc/scan_keys.cu with nvcc from the checkout, print
-     ptxas's registers and spills per kernel (any spill fails);
+     ptxas's registers and spills per kernel (any spill fails); then
+     fma_f32 (the one-rounding multiply-add under the kernel's plain
+     version): the witness of a double rounding and a seeded sweep next
+     to f32 midpoints, on the card against the CPU and against exact
+     rational arithmetic, 0 mismatches, through both of its routes (the
+     correction under the midpoint mask for small results, on the gathered
+     hits for large ones), each route timed at a plain-version group's
+     shape and a chunk's beside the float64 sum and cast;
   3. the scan_keys kernel against its plain PyTorch version at the main
      path's shapes (1M x 128d store, Q = 2048, bins = 1024): sketch mode
      (and 64- and 256-query batches, whose group axis is split over the
@@ -30,13 +37,18 @@ Phases, in order; any failed check exits non-zero:
      recipe: seconds to draw 1M x 128d on the card, and the card against
      the CPU at 4096 x 64 (integer draws equal, max ulp of the normals);
      (e) BruteForceIndex(128, bits=1) on 100k x 128d: recall@10, QPS;
+     (f) make_synthetic's disk cache at 100k x 128d in a directory under
+     build/: the second call returns equal arrays from the file, both
+     timed, the file removed afterwards (every other draw of this script
+     passes cache_dir=None);
   6. the graph drive: CPIndex(128, bits=1, engine="graph") on the same 1M x
      128d data, build + finalize (seconds per stage), one warm and 5 timed
      search_batch(k=10) on the first 1024 queries, recall@10 >= 0.90, the
      beam steps and ms per step (CUDA events);
   7. a 100k x 128d 4-bit graph drive (the MSB two-stage bound), recall@10
      >= 0.90, then save -> load into a fresh CPIndex: equal ids; (f) its
-     beam with rerank_width = 8 against 0 (rerank all): id overlap;
+     beam with rerank_width = 8 against 0 (rerank all): id overlap, each
+     width warmed once and timed as the median of 5;
   8. torch.profiler over one warm 1M graph batch: device-busy share, the
      five kernels with the most device time, launches per beam step;
   9. the sharded scan: ShardedScanIndex(128, bits=1) on the same 1M x 128d
@@ -47,14 +59,23 @@ Phases, in order; any failed check exits non-zero:
      least one launch per shard per sub-batch), the kernel against its
      plain version on one shard's real operands (with its bound and
      yardstick), a per-shard stage split
-     and the merge, then save -> load into a fresh single-device ScanIndex
+     and the merge; (c) the same store and mesh through
+     sharded_scan_search(fused=False), the JAX package's per-shard chunked
+     selection on its local chunk plan, 2048 queries: recall@10 >= 0.99,
+     id overlap with the kernel path >= 0.99, ms per batch, no kernel
+     launch; then save -> load into a fresh single-device ScanIndex
      and a fresh ShardedScanIndex;
  10. the sharded graph: ShardedIndex(128, bits=1, r=32) on the same data
      and mesh, build stages, pooled params and step budget, one warm and
      3 timed searches of the first 1024 queries, recall@10 >= 0.90; then a
      100k x 128d 4-bit sharded graph through save -> load: equal ids;
+     (b) that graph through sharded_search(n_seeds=2) against n_seeds=4:
+     k valid ids with exact distances from both, their overlap, the
+     steps one shard's beam takes uncapped, and, with no step taken,
+     n_seeds ids per shard in every merged list;
  11. the CLI: python -m cphnsw_tpu_torch --bits 1 --device cuda on
-     synthetic-20k-64d as a subprocess, results in a temporary directory.
+     synthetic-20k-64d as a subprocess, results and the data cache in a
+     temporary directory.
 The graph path has no hand-written kernel (the JAX package's Pallas
 beam-step kernel was retired before the port); its device work is torch
 ops.  The last lines are the kernels' JSON, the card's name and power
@@ -64,12 +85,15 @@ limit as nvidia-smi reports them, and the result JSON.
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
@@ -77,9 +101,10 @@ import torch
 
 from cphnsw_tpu_torch import CPIndex, ScanIndex
 from cphnsw_tpu_torch.kernels import scan_keys
-from cphnsw_tpu_torch.ops import hadamard, pack, quantize, threefry
+from cphnsw_tpu_torch.ops import hadamard, pack, quantize, rounding, threefry
+from cphnsw_tpu_torch.ops.rounding import fma_f32
 from cphnsw_tpu_torch.parallel import sharded
-from cphnsw_tpu_torch.search import bruteforce, scan
+from cphnsw_tpu_torch.search import beam, bruteforce, scan
 from cphnsw_tpu_torch.utils import datasets, native
 from cphnsw_tpu_torch.utils.datasets import make_synthetic
 from cphnsw_tpu_torch.utils.eval import recall_at_k
@@ -110,6 +135,11 @@ BRUTE_QUERIES = 2048
 BRUTE_MIN_RECALL = 0.5
 # Graph rerank cap checked in phase 7 (of E * R = 128 candidates a step).
 RERANK_WIDTH = 8
+# Triples of the fma_f32 sweep (phase 2): each is checked against exact
+# rational arithmetic on the host.
+FMA_SWEEP = 4096
+# Queries of the per-shard chunked selection (phase 9c): one sub-batch.
+CHUNKED_QUERIES = 2048
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
 # int8 tensor-core operations and HBM3 bytes per second.
 INT8_OPS_PER_S = 1979e12
@@ -645,7 +675,10 @@ def cli_drive(card):
         proc = subprocess.run(
             [sys.executable, "-m", "cphnsw_tpu_torch", "--config", str(cfg),
              "--bits", "1", "--device", "cuda"],
-            capture_output=True, text=True, cwd=root, timeout=300)
+            capture_output=True, text=True, cwd=root, timeout=300,
+            # the CLI caches its set under the temporary directory it is
+            # given: this one, removed with the results
+            env={**os.environ, "TMPDIR": tmp})
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
             fail(f"the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
@@ -863,6 +896,9 @@ def threefry_drive(card):
         f"[{card}]")
     if not equal:
         fail("the Threefry integer draws differ between the card and CPU")
+    if max_ulp or data_ulp or not np.array_equal(q_cuda, q_cpu):
+        fail(f"the Threefry normals differ between the card and the CPU: "
+             f"{max_ulp} ulps, base {data_ulp}")
     return dict(generate_s=gen_s, integers_equal=equal,
                 normal_max_ulp=max_ulp)
 
@@ -908,20 +944,20 @@ def brute_force_drive(small, card):
 
 def rerank_width_drive(g, queries, card):
     """Phase 7f: the beam with rerank_width = RERANK_WIDTH against the
-    default (rerank every candidate) on the same queries."""
+    default (rerank every candidate) on the same queries; each width is
+    warmed once, then timed as the median of TIMED_RUNS runs."""
     q_dev = torch.from_numpy(queries).cuda()
     runs = {}
     for width in (0, RERANK_WIDTH):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        ids, d, state = g._beam(q_dev, g._entry_candidates, K,
-                                g._max_steps(K), rerank_width=width,
-                                debug_state=True)
-        end.record()
-        torch.cuda.synchronize()
-        runs[width] = (ids.cpu().numpy(), d.cpu().numpy(), state.steps,
-                       start.elapsed_time(end))
+        out = []
+
+        def search():
+            out[:] = g._beam(q_dev, g._entry_candidates, K, g._max_steps(K),
+                             rerank_width=width, debug_state=True)
+
+        ms = median_ms(search)
+        ids, d, state = out
+        runs[width] = (ids.cpu().numpy(), d.cpu().numpy(), state.steps, ms)
     (ids0, _, s0, ms0), (ids8, d8, s8, ms8) = runs[0], runs[RERANK_WIDTH]
     over = float((ids8[:, :, None] == ids0[:, None, :]).any(-1).mean())
     raw = g._raw.cpu().numpy()
@@ -930,10 +966,265 @@ def rerank_width_drive(g, queries, card):
     log(f"  [7f] beam rerank_width={RERANK_WIDTH} of "
         f"{g._expand_width * g._r} candidates a step: id overlap with "
         f"rerank_width=0 {over:.4f}; {s8} steps in {ms8:.2f} ms against "
-        f"{s0} in {ms0:.2f} ms (Q={len(queries)}) [{card}]")
+        f"{s0} in {ms0:.2f} ms (Q={len(queries)}, each warmed once, median "
+        f"of {TIMED_RUNS}) [{card}]")
     if (ids8 < 0).any() or not np.allclose(d8, exact, rtol=1e-3, atol=1e-3):
         fail("rerank_width beam: missing ids or inexact distances")
     return dict(overlap=over, steps=s8, ms=ms8, steps_full=s0, ms_full=ms0)
+
+
+def round_f32(x: Fraction) -> float:
+    """The f32 nearest to x, ties to even (|x| below the f32 maximum)."""
+    if x == 0:
+        return 0.0
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    if Fraction(2) ** e > x:
+        e -= 1
+    ulp = Fraction(2) ** (max(e, -126) - 23)
+    n, rem = divmod(x, ulp)
+    if rem * 2 > ulp or (rem * 2 == ulp and n % 2 == 1):
+        n += 1
+    return sign * float(n * ulp)
+
+
+def fma_drive(card):
+    """fma_f32 on the card against the CPU and against exact arithmetic:
+    the witness of a double rounding (a float64 sum that lands on an f32
+    midpoint) and FMA_SWEEP seeded triples whose exact a * b + c lies
+    within a few float64 ulps of an f32 midpoint."""
+    rng = np.random.default_rng(0)
+    n = FMA_SWEEP
+    m = rng.integers(1 << 23, 1 << 24, n).astype(np.float64)
+    k = rng.integers(-40, 40, n)
+    c = np.ldexp(m, k) * rng.choice([-1.0, 1.0], n)
+    u = rng.integers(-200, 201, n).astype(np.float64) * 2.0 ** -23
+    v = -u + rng.integers(-1, 2, n) * 2.0 ** -23
+    sh = rng.integers(-30, 30, n)
+    a = np.ldexp(1.0 + u, sh)
+    b = np.ldexp(1.0 + v, k - 1 - sh) * rng.choice([-1.0, 1.0], n)
+    # the witness first: exact result 1 + 2^-23, 1 + 2^-22 if rounded twice
+    a = np.concatenate([[1 + 2.0 ** -18], a]).astype(np.float32)
+    b = np.concatenate([[2.0 ** -24 * (1 - 2.0 ** -18)], b]).astype(
+        np.float32)
+    c = np.concatenate([[1 + 2.0 ** -23], c]).astype(np.float32)
+    exact = np.array([round_f32(Fraction(float(x)) * Fraction(float(y))
+                                + Fraction(float(z)))
+                      for x, y, z in zip(a, b, c)], np.float32)
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    on_cpu = fma_f32(*(torch.from_numpy(t) for t in (a, b, c))).numpy()
+    on_card = fma_f32(*(torch.from_numpy(t).cuda() for t in (a, b, c)))
+    # Python-float operands, as the Threefry polynomials pass them
+    scalar = fma_f32(float(a[0]), torch.from_numpy(b[:1]).cuda(),
+                     float(c[0])).cpu().numpy()
+    on_card = on_card.cpu().numpy()
+    # the sweep is small, so that was fma_f32's masked route; its other
+    # route (large results: the hits gathered) must give the same bits
+    gathered, route_ms = fma_routes(a, b, c)
+    if (gathered != on_card).any():
+        fail(f"fma_f32: its two routes differ on "
+             f"{int((gathered != on_card).sum())} of {n + 1} triples")
+    log(f"  fma_f32 routes, both exact (ms, median of {TIMED_RUNS}): a "
+        f"chain of 5 on (2048, 1024), the plain version's group: masked "
+        f"{route_ms['group_masked']:.4f} (the route taken), gathered "
+        f"{route_ms['group_gathered']:.4f}; one on (2048, 131072), a "
+        f"chunk of the chunked selection: gathered "
+        f"{route_ms['chunk_gathered']:.4f} (the route taken), masked "
+        f"{route_ms['chunk_masked']:.4f}; a float64 sum and cast "
+        f"{route_ms['group_twice']:.4f} / {route_ms['chunk_twice']:.4f} "
+        f"[{card}]")
+    bad_card = int((on_card != exact).sum())
+    bad_cpu = int((on_cpu != exact).sum())
+    log(f"  fma_f32: witness on the card {on_card[0]!r} (exact "
+        f"{exact[0]!r}, rounded twice {twice[0]!r}); sweep of {n} "
+        f"near-midpoint triples: card != exact {bad_card}, CPU != exact "
+        f"{bad_cpu}, card != CPU {int((on_card != on_cpu).sum())}; a float64 "
+        f"sum cast to f32 gets {int((twice != exact).sum())} wrong [{card}]")
+    if exact[0] != np.float32(1 + 2.0 ** -23) or scalar[0] != exact[0]:
+        fail("fma_f32: the witness triple is not rounded once")
+    if bad_card or bad_cpu:
+        fail(f"fma_f32 differs from exact arithmetic: card {bad_card}, CPU "
+             f"{bad_cpu} of {n + 1}")
+    if not (twice != exact).any():
+        fail("fma_f32: the sweep never reaches a double rounding")
+    return dict(triples=n + 1, card_mismatches=bad_card,
+                cpu_mismatches=bad_cpu,
+                double_rounding_cases=int((twice != exact).sum()),
+                route_ms=route_ms)
+
+
+def fma_routes(a, b, c):
+    """fma_f32's two routes on the card: the sweep through the gathered
+    route, and each route's time at the two sizes the port calls it with
+    (a group of the kernel's plain version, a chunk of the chunked
+    selection), beside the float64 sum and cast it replaced."""
+    dense_max = rounding._DENSE_MAX
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def operands(rows):
+        return (torch.randn((2048, 1), device="cuda", generator=gen),
+                torch.randn((1, rows), device="cuda", generator=gen),
+                torch.randn((2048, rows), device="cuda", generator=gen))
+
+    def chain(fma, x, y, z, links):
+        for _ in range(links):
+            z = fma(x, y, z)
+        return z
+
+    def twice(x, y, z):
+        return (x.double() * y.double() + z.double()).float()
+
+    ms = {}
+    try:
+        rounding._DENSE_MAX = 0
+        gathered = fma_f32(*(torch.from_numpy(t).cuda()
+                             for t in (a, b, c))).cpu().numpy()
+        for name, rows, links in (("group", 1024, 5), ("chunk", 131072, 1)):
+            ops = operands(rows)
+            if (ops[2].numel() <= dense_max) != (name == "group"):
+                fail(f"fma_f32: the {name} shape no longer takes the route "
+                     f"this phase names (_DENSE_MAX = {dense_max})")
+            for route, limit in (("gathered", 0), ("masked", 1 << 62)):
+                rounding._DENSE_MAX = limit
+                ms[f"{name}_{route}"] = median_ms(
+                    lambda: chain(fma_f32, *ops, links))
+            ms[f"{name}_twice"] = median_ms(lambda: chain(twice, *ops, links))
+            del ops
+            torch.cuda.empty_cache()
+    finally:
+        rounding._DENSE_MAX = dense_max
+    return gathered, ms
+
+
+def cache_drive(card):
+    """Phase 5f: make_synthetic's disk cache at N_SMALL x DIM in a
+    directory under the build directory; the second call must return
+    equal arrays from the file."""
+    cache = scan_keys.BUILD_DIR / "synth_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    kw = dict(n_queries=N_QUERIES, gt_k=K, n_clusters=256, seed=0,
+              gt_device="cuda", cache_dir=cache)
+    name = f"synthetic-{N_SMALL // 1000}k-{DIM}d"
+    try:
+        t0 = time.perf_counter()
+        first = make_synthetic(name, **kw)
+        first_s = time.perf_counter() - t0
+        files = sorted(f.name for f in cache.iterdir())
+        size_mib = sum(f.stat().st_size for f in cache.iterdir()) / 2**20
+        t0 = time.perf_counter()
+        second = make_synthetic(name, **kw)
+        second_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    equal = all(np.array_equal(first[key], second[key])
+                for key in ("base", "queries", "groundtruth"))
+    log(f"  [5f] make_synthetic cache, {name}: first call {first_s:.3f} s "
+        f"(drawn, ground truth on the card, written), second call "
+        f"{second_s:.3f} s (read), file {files} {size_mib:.1f} MiB, arrays "
+        f"equal {equal} [{card}]")
+    if len(files) != 1 or not equal or second["dim"] != DIM:
+        fail(f"make_synthetic cache: files {files}, arrays equal {equal}")
+    if second_s >= first_s:
+        fail(f"make_synthetic cache: the read ({second_s:.3f} s) is not "
+             f"faster than the draw ({first_s:.3f} s)")
+    return dict(first_s=first_s, second_s=second_s, file_mib=size_mib)
+
+
+def sharded_chunked_drive(idx, data, mesh, kernel_ids, card):
+    """Phase 9c: the sharded store through sharded_scan_search(fused=False)
+    on the local chunk plan, CHUNKED_QUERIES queries: recall@10, id
+    overlap with the kernel path, ms per batch (CUDA events, median of
+    TIMED_RUNS after one warm call), and no kernel launch."""
+    inner = idx._inner
+    n_local = idx._store.rows
+    queries = data["queries"][:CHUNKED_QUERIES]
+    q16 = queries.astype(np.float16)
+    plan = scan.chunk_plan(n_local, CHUNKED_QUERIES)
+    top_c = idx._top_c(K, CHUNKED_QUERIES)
+    out = []
+
+    def search():
+        out[:] = sharded.sharded_scan_search(
+            idx._store, q16, idx._signs, inner._affine_a, inner._affine_b,
+            inner._n, mesh, kappa=1.0, k=K, top_c=top_c, fused=False)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches = scan_keys.launches
+    ms = median_ms(search)
+    launched = scan_keys.launches - launches
+    ids, dists = (t.cpu().numpy() for t in out)
+    recall = recall_at_k(ids, data["groundtruth"][:CHUNKED_QUERIES], K)
+    kernel_ids = kernel_ids[:CHUNKED_QUERIES]
+    over = float((ids[:, :, None] == kernel_ids[:, None, :]).any(-1).mean())
+    log(f"  [9c] sharded_scan_search(fused=False), {CHUNKED_QUERIES} queries "
+        f"over {N_SHARDS} shards of {n_local} rows, local chunk plan "
+        f"{plan[1]} x {plan[0]} + {plan[2]} rows, top_c {top_c}: "
+        f"{ms:.3f} ms per batch (median of {TIMED_RUNS}), recall@{K}="
+        f"{recall:.4f}, id overlap with the kernel path {over:.4f}, "
+        f"scan_keys launches {launched}, peak device memory "
+        f"{peak_gib():.2f} GiB [{card}]")
+    if launched:
+        fail(f"the chunked sharded scan launched the kernel {launched} times")
+    if ids.shape != (CHUNKED_QUERIES, K) or not np.isfinite(dists).all():
+        fail(f"chunked sharded scan: malformed result {ids.shape}")
+    if recall < MIN_RECALL or over < 0.99:
+        fail(f"chunked sharded scan: recall@{K} {recall}, overlap {over}")
+    return dict(ms=ms, recall=recall, overlap=over, top_c=top_c,
+                chunk_plan=list(plan), peak_gib=peak_gib())
+
+
+def sharded_seeds_drive(idx, queries, base, mesh, card):
+    """Phase 10b: the sharded graph through sharded_search(n_seeds=2)
+    against n_seeds=4 (the facade's): k valid ids with exact distances
+    from both, their overlap, and the steps shard 0's beam takes to
+    converge from each (under the generic 512-step cap: the index's derived
+    budget cuts both off at the same step).  With no step taken the merged
+    list is the shards' seeds alone, so it must hold n_seeds ids per shard:
+    the proof that the argument reaches every beam."""
+    out, steps = {}, {}
+    n_model = mesh.shape["model"]
+    for n_seeds in (1, 2, 4):
+        ids0 = sharded.sharded_search(
+            idx._store, queries, idx._params_dev, idx._signs, mesh,
+            bits=idx.bits, k=K, max_steps=0, n_real=idx._n,
+            n_seeds=n_seeds)[0].cpu().numpy()
+        valid = (ids0 >= 0).sum(1)
+        want = min(K, n_seeds * n_model)
+        # a shard-padding duplicate among a shard's seeds is masked out
+        if (valid > want).any() or (valid < want - n_model).any() or \
+                (n_seeds * n_model < K and (valid >= K).any()):
+            fail(f"sharded graph n_seeds={n_seeds}, no steps: "
+                 f"{valid.min()}..{valid.max()} ids per query, want {want}")
+    sh = idx._store.shards[0][0]
+    dev = sh.raw.device
+    for n_seeds in (4, 2):
+        ids, d = sharded.sharded_search(
+            idx._store, queries, idx._params_dev, idx._signs, mesh,
+            bits=idx.bits, k=K, max_steps=idx._max_steps(K), n_real=idx._n,
+            n_seeds=n_seeds)
+        out[n_seeds] = (ids.cpu().numpy(), d.cpu().numpy())
+        state = beam.search_batch(
+            sh.raw, sh.norm_sq, sh.neighbors, sh.entry_candidates,
+            idx._signs[dev], torch.from_numpy(queries).to(dev),
+            idx._params_dev[dev], bits=idx.bits, k=K,
+            max_steps=512, n_seeds=n_seeds, debug_state=True)[2]
+        steps[n_seeds] = state.steps
+    for n_seeds, (ids, d) in out.items():
+        exact = ((queries[:, None, :] - base[np.maximum(ids, 0)]) ** 2
+                 ).sum(-1)
+        if ids.shape != (len(queries), K) or (ids < 0).any() or                 (ids >= idx._n).any() or                 not np.allclose(d, exact, rtol=1e-3, atol=1e-3):
+            fail(f"sharded graph n_seeds={n_seeds}: missing ids or inexact "
+                 f"distances")
+    over = float((out[2][0][:, :, None] == out[4][0][:, None, :]).any(-1)
+                 .mean())
+    log(f"  [10b] sharded_search(n_seeds=2) against n_seeds=4 "
+        f"(Q={len(queries)}): {K} valid ids with exact distances from both, "
+        f"id overlap {over:.4f}; with no step taken each query holds n_seeds "
+        f"ids per shard (1, 2, 4 checked); uncapped, shard 0's beam ran "
+        f"{steps[2]} steps from 2 seeds, {steps[4]} from 4 (the index's "
+        f"budget is {idx._max_steps(K)}) [{card}]")
+    return dict(overlap=over, steps_2=steps[2], steps_4=steps[4])
 
 
 def main():
@@ -962,11 +1253,13 @@ def main():
         f"block at P = 128: "
         f"{scan_keys.load_library().scan_keys_smem_bytes(128)} bytes")
     ptxas = ptxas_report(path)
+    fma = fma_drive(card)
 
     # 3. kernel vs plain version at the main path's shapes
     data = make_synthetic(f"synthetic-{N_MAIN // 1000}k-{DIM}d",
                           n_queries=N_QUERIES,
-                          gt_k=K, n_clusters=256, seed=0, gt_device="cuda")
+                          gt_k=K, n_clusters=256, seed=0, gt_device="cuda",
+                          cache_dir=None)
     if "base_dev_factory" not in data:
         fail("the 1M store was not drawn on the card")
     log(f"[3] data: base {data['base'].shape}, queries "
@@ -1016,7 +1309,8 @@ def main():
 
     small = make_synthetic(f"synthetic-{N_SMALL // 1000}k-{DIM}d",
                            n_queries=N_QUERIES,
-                           gt_k=K, n_clusters=256, seed=0, gt_device="cuda")
+                           gt_k=K, n_clusters=256, seed=0, gt_device="cuda",
+                           cache_dir=None)
     drive("100k x 128d 4-bit", small, 4, card)
 
     # 5. save -> load round trip
@@ -1036,13 +1330,14 @@ def main():
 
     # 5a-5e. the JAX package's other selections on the main index, its
     # Threefry data recipe, the brute-force index
-    log("[5a-e] chunked and exact selection, bf16 two-stage rerank on the "
-        "main index; Threefry recipe; BruteForceIndex")
+    log("[5a-f] chunked and exact selection, bf16 two-stage rerank on the "
+        "main index; Threefry recipe; BruteForceIndex; the data cache")
     phases = selection_drives(idx._index, data, ids, card)
     del idx
     torch.cuda.empty_cache()
     phases["threefry"] = threefry_drive(card)
     phases["brute_force"] = brute_force_drive(small, card)
+    phases["data_cache"] = cache_drive(card)
     torch.cuda.empty_cache()
 
     # 6. graph main drive
@@ -1094,6 +1389,8 @@ def main():
     check_kernel("estimate-shard", ops, s_bins, card, results)
     del ops
     s_split = sharded_stage_split(sidx, data["queries"], s_top_c, card)
+    phases["sharded_chunked"] = sharded_chunked_drive(sidx, data, mesh,
+                                                      s_ids, card)
     sharded_scan_round_trip(sidx, s_ids, mesh, data["queries"],
                             data["groundtruth"])
     del sidx
@@ -1122,6 +1419,8 @@ def main():
             f"{np.array_equal(gids4, gids4b)}")
     if not np.array_equal(gids4, gids4b):
         fail("sharded graph ids after save -> load differ")
+    phases["sharded_n_seeds"] = sharded_seeds_drive(gsh4, gq4, small["base"],
+                                                    mesh, card)
     del gsh4, fresh
     torch.cuda.empty_cache()
 
@@ -1151,7 +1450,8 @@ def main():
         sharded_scan_stage_ms=s_split,
         sharded_scan_launches_per_batch=s_per_batch,
     )]
-    log(f"phases 5a-5e, 7f: {json.dumps(phases)}")
+    phases["fma_f32"] = fma
+    log(f"phases 2 (fma_f32), 5a-5f, 7f, 9c, 10b: {json.dumps(phases)}")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

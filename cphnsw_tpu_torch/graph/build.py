@@ -67,6 +67,24 @@ class NeighborStore:
             n, self.bits, self.words, self.r)
         return pw.permute(0, 3, 1, 2)
 
+    @property
+    def nop(self) -> torch.Tensor:
+        """(N, R) f32 residual norms ||neighbour - parent||."""
+        return self.aux[..., 0]
+
+    @property
+    def ip_qo(self) -> torch.Tensor:
+        return self.aux[..., 1]
+
+    @property
+    def ip_cp(self) -> torch.Tensor:
+        return self.aux[..., 2]
+
+    @property
+    def wpc(self) -> torch.Tensor:
+        """(N, R) f32 weighted popcounts of the edge codes."""
+        return self.aux[..., 3]
+
     @staticmethod
     def pack(ids, planes, aux) -> "NeighborStore":
         """Fused layout from ids (N, R) int32, planes (N, R, bits, W)
@@ -97,9 +115,14 @@ class BuildResult:
 
 
 def _chunked_prune(raw, norm_sq, cand_ids, cand_dists, node_nop, alpha, tau,
-                   alpha_max, r: int, error_tolerance: float):
+                   alpha_max, r: int, error_tolerance: float,
+                   chunk: int | None = None):
+    """alpha-CNG prune of every node's candidate list, `chunk` nodes at a
+    time (default: what the gather budget allows); the chunk size changes
+    no result."""
     n, c = cand_ids.shape
-    chunk = nndescent._chunk_for(n, c, raw.shape[1], PRUNE_CHUNK)
+    if chunk is None:
+        chunk = nndescent._chunk_for(n, c, raw.shape[1], PRUNE_CHUNK)
     sel_ids = torch.empty((n, r), dtype=torch.int32, device=raw.device)
     sel_dists = torch.empty((n, r), dtype=torch.float32, device=raw.device)
     for s in range(0, n, chunk):
@@ -145,12 +168,15 @@ def _reverse_candidates(sel_ids, sel_dists, r_rev: int):
         rev_dists).to(dev)
 
 
-def encode_neighbor_blocks(raw, sel_ids, signs, bits: int) -> NeighborStore:
+def encode_neighbor_blocks(raw, sel_ids, signs, bits: int,
+                           chunk: int | None = None) -> NeighborStore:
     """Edge-residual encoding of all selected edges, node-chunked: each
-    chunk rotates and quantizes chunk*R residual vectors at once."""
+    chunk rotates and quantizes chunk*R residual vectors at once (`chunk`
+    overrides the derived node count per chunk and changes no result)."""
     n, r = sel_ids.shape
     p = signs.shape[-1]
-    chunk = nndescent._chunk_for(n, r, p, ENCODE_CHUNK)
+    if chunk is None:
+        chunk = nndescent._chunk_for(n, r, p, ENCODE_CHUNK)
     w = pack.num_words(p)
     dev = raw.device
     planes = torch.empty((n, r, bits, w), dtype=torch.int32, device=dev)

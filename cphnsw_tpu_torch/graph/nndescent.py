@@ -117,9 +117,14 @@ def _new_graph(n: int, r: int, device):
     )
 
 
-def init_random(raw, norm_sq, r: int, gen: torch.Generator) -> WorkingGraph:
+def init_random(raw, norm_sq, r: int, gen: torch.Generator,
+                chunk: int | None = None) -> WorkingGraph:
     """Coupon-collector random init: a pool of ~R*ln(n/R) random
-    candidates per node, keep the R nearest."""
+    candidates per node, keep the R nearest.  `chunk` overrides the nodes
+    drawn per step, as in the JAX package's signature; the draws follow
+    the chunking, so another chunk gives another (equally valid) graph.
+    The build always derives it: the override is for tests that want
+    several chunks on a small store."""
     n = raw.shape[0]
     dev = raw.device
     pool = min(
@@ -127,7 +132,8 @@ def init_random(raw, norm_sq, r: int, gen: torch.Generator) -> WorkingGraph:
         max(n - 1, 1),
     )
     pool = max(pool, min(r, n - 1))
-    chunk = _chunk_for(n, pool, raw.shape[1], 16384)
+    if chunk is None:
+        chunk = _chunk_for(n, pool, raw.shape[1], 16384)
     out = _new_graph(n, r, dev)
     for start in range(0, n, chunk):
         node_ids = torch.arange(start, min(start + chunk, n), device=dev)

@@ -13,9 +13,11 @@ Draws what ``jax.random`` draws under JAX's default
   * ``uniform``, ``normal``, ``randint`` and ``permutation`` follow
     ``jax/_src/random.py``.  ``normal`` is sqrt(2) * erf_inv(u) for u
     uniform in [nextafter(-1, 0), 1), with XLA's f32 erf_inv polynomial
-    and the XLA CPU backend's log1p and log written out op by op (each
-    contracted multiply-add rounded once), so the normals agree with JAX
-    on the CPU to a few ulps and the integer draws exactly.
+    and the XLA CPU backend's log1p and log written out op by op, with
+    the multiply-adds that backend contracts rounded once (a sum takes a
+    product into a fused multiply-add when the product has no other use;
+    of two such products the first operand's), so the normals and the
+    integer draws are bit-equal to JAX's on the CPU.
 
 Every value is a uint32 held in an int64 tensor, so sums and shifts never
 overflow; ``& M32`` reduces them mod 2^32.
@@ -146,8 +148,8 @@ def _log(x: torch.Tensor) -> torch.Tensor:
     y = fma_f32(fma_f32(t, LOG_P[0], LOG_P[1]), t, LOG_P[2])
     y1 = fma_f32(fma_f32(t, LOG_P[3], LOG_P[4]), t, LOG_P[5])
     y2 = fma_f32(fma_f32(t, LOG_P[6], LOG_P[7]), t, LOG_P[8])
-    y = fma_f32(fma_f32(y, t3, y1), t3, y2) * t3
-    y = fma_f32(LOG_Q1, e, y)
+    # the sum of two products contracts the first one: y * t3 + (Q1 * e)
+    y = fma_f32(fma_f32(fma_f32(y, t3, y1), t3, y2), t3, LOG_Q1 * e)
     t = fma_f32(-0.5, t2, t)
     return fma_f32(LOG_Q2, e, t + y)
 

@@ -180,16 +180,23 @@ def shard_scan_store(shards: list, mesh: Mesh) -> ShardedScanStore:
 
 def sharded_scan_search(store: ShardedScanStore, queries: np.ndarray, signs,
                         affine_a: float, affine_b: float, n: int, mesh: Mesh,
-                        kappa: float, k: int, top_c: int):
+                        kappa: float, k: int, top_c: int,
+                        chunk: int | None = None, n_eq: int = 1, rem: int = 0,
+                        fused: bool = True):
     """Global top-k over all scan shards.
 
     queries: (Q, dim <= P) host array with Q a multiple of the data axis;
     signs: {device: rotation signs}.  Returns (ids (Q, k) int64 global
     store rows, -1 for none, dists (Q, k) f32) on mesh.devices[0, 0].
-    Each shard scans its own rows in estimate mode (no sketch) through the
-    scan_keys kernel, top_c clamped to its row count, in
-    derived_sub_batch(N_s, top_c) query slices; n is the global count of
-    genuine rows, shard s holding clamp(n - s*N_s, 0, N_s) of them."""
+    Each shard scans its own rows in estimate mode (no sketch), top_c
+    clamped to its row count, in derived_sub_batch(N_s, top_c) query
+    slices; n is the global count of genuine rows, shard s holding
+    clamp(n - s*N_s, 0, N_s) of them.  fused (the default): the scan_keys
+    kernel on a CUDA shard, its plain version on a CPU one.  fused=False:
+    scan.scan_search's chunked selection on every shard, over the local
+    chunk plan (chunk, n_eq, rem), by default scan.chunk_plan(N_s, queries
+    per data block); every slice of a block uses that one plan, so a
+    sliced call returns the ids of one call."""
     n_data, n_model = mesh.shape["data"], mesh.shape["model"]
     n_local = store.rows
     # a shard contributes at most its own rows; the merged width
@@ -198,6 +205,8 @@ def sharded_scan_search(store: ShardedScanStore, queries: np.ndarray, signs,
     tc = max(min(top_c, n_local), k_local)
     sub = derived_sub_batch(n_local, tc, cap=SEARCH_SUB_BATCH)
     qd = len(queries) // n_data
+    if not fused and chunk is None:
+        chunk, n_eq, rem = scan.chunk_plan(n_local, qd)
     out_ids, out_d = [], []
     for d in range(n_data):
         block = torch.from_numpy(queries[d * qd:(d + 1) * qd])
@@ -214,7 +223,8 @@ def sharded_scan_search(store: ShardedScanStore, queries: np.ndarray, signs,
                 ids_s, d_s = scan.scan_search(
                     store.shards[d][s], q_on[dev][start:start + sub],
                     signs[dev], affine_a, affine_b, n_s, kappa=kappa,
-                    k=k_local, top_c=tc)
+                    k=k_local, top_c=tc, chunk=chunk, n_eq=n_eq, rem=rem,
+                    fused=fused)
                 ids_l.append(ids_s)
                 d_l.append(d_s)
             ids_s = torch.cat(ids_l)
@@ -802,14 +812,15 @@ def _derive_shard_step_budget(shards: list, params: beam.SearchParams,
 def sharded_search(store: ShardedStore, queries: np.ndarray, params: dict,
                    signs: dict, mesh: Mesh, bits: int, k: int,
                    n_real: int, beam_cap: int = 128,
-                   max_steps: int = 512):
+                   max_steps: int = 512, n_seeds: int = 4):
     """Global top-k over all graph shards.
 
     queries: (Q, dim) host array with Q a multiple of the data axis;
     params and signs: {device: ...}.  Returns (ids (Q, k) in the caller's
     original row order, -1 for none, dists (Q, k)) on mesh.devices[0, 0].
     Rows whose original id is >= n_real are shard-padding duplicates and
-    are masked before the merge.  Each shard searches in sub-batches whose
+    are masked before the merge.  n_seeds: the entry candidates every
+    shard's beam starts from.  Each shard searches in sub-batches whose
     dense visited table stays within VISITED_BYTES_BUDGET, as
     Index.search_batch does."""
     n_data, n_model = mesh.shape["data"], mesh.shape["model"]
@@ -831,7 +842,8 @@ def sharded_search(store: ShardedStore, queries: np.ndarray, params: dict,
                 ids_s, d_s = beam.search_batch(
                     sh.raw, sh.norm_sq, sh.neighbors, sh.entry_candidates,
                     signs[dev], q_on[dev][start:start + sub], params[dev],
-                    bits=bits, k=k, beam_cap=beam_cap, max_steps=max_steps)
+                    bits=bits, k=k, beam_cap=beam_cap, max_steps=max_steps,
+                    n_seeds=n_seeds)
                 ids_l.append(ids_s)
                 d_l.append(d_s)
             local_ids, local_d = torch.cat(ids_l), torch.cat(d_l)

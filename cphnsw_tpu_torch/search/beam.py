@@ -63,6 +63,17 @@ class SearchParams(NamedTuple):
     gamma_beta: float
     gamma_warmup: int
 
+    @classmethod
+    def default(cls, num_levels: int = 4, device="cpu") -> "SearchParams":
+        """The uncalibrated constants of the JAX package's
+        ``SearchParams.default``: the identity affine, no slack, gamma 1
+        that never adapts; the slack ladder lies on `device`."""
+        return cls(affine_a=1.0, affine_b=0.0, ip_qo_floor=0.0,
+                   slack_levels=torch.zeros(num_levels, dtype=torch.float32,
+                                            device=device),
+                   gamma=1.0, gamma_max=1.5, gamma_beta=0.0,
+                   gamma_warmup=1 << 30)
+
 
 class BeamState(NamedTuple):
     beam_ids: torch.Tensor    # (Q, B) int32

@@ -5,15 +5,19 @@ data follow the JAX package's two recipes, so the same seed gives the same
 base and query vectors: the host numpy recipe (bit-identical), and, for a
 store of at least DEVICE_DATA_MIN_ELEMENTS elements on a CUDA device, the
 JAX package's accelerator recipe drawn from JAX's Threefry stream on the
-card (``_device_synthetic``: integer draws equal, normals within a few
-ulps of ``jax.random`` on the CPU).  Ground truth is the host numpy
-computation by default; ``gt_device`` computes it on a torch device
-instead, by chunked fp32 products with TF32 off (the host computation does
-not scale to a million rows and thousands of queries).
+card (``_device_synthetic``: bit-equal to ``jax.random`` on the CPU).
+Ground truth is the host numpy computation by default; ``gt_device``
+computes it on a torch device instead, by chunked fp32 products with TF32
+off (the host computation does not scale to a million rows and thousands
+of queries).  ``make_synthetic`` keeps each set in a file on disk, as the
+JAX package does and, for the host recipe, in the same file.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +30,14 @@ from cphnsw_tpu_torch.ops.estimate import full_fp32
 # CUDA device from JAX's Threefry stream, as the JAX package generates them
 # on its accelerator: the JAX package's threshold.
 DEVICE_DATA_MIN_ELEMENTS = 64 << 20
+# Where make_synthetic keeps its sets by default: the JAX package's
+# directory name under the system's temporary directory (TMPDIR is honoured),
+# so that the host recipe's files are shared where both packages run with
+# the same temporary directory, and two runs given their own stay apart.
+DEFAULT_CACHE_DIR = str(Path(tempfile.gettempdir()) / "cphnsw_synth_cache")
+# Part of the device recipe's cache key: raise it whenever a change to
+# ops/threefry.py or ops/rounding.py changes a bit of what that recipe draws.
+DEVICE_GENERATOR_VERSION = 2
 
 FVECS_DATASETS = {
     "sift1m": {
@@ -59,7 +71,8 @@ def read_ivecs(path: Path) -> np.ndarray:
 
 def load_dataset(name: str, base_dir: Path, gt_device=None) -> dict:
     """A dataset by name: fvecs or npy files under base_dir/name, or a
-    synthetic set (ground truth on `gt_device` if given)."""
+    synthetic set (ground truth on `gt_device` if given; cached under
+    make_synthetic's default directory, as in the JAX package)."""
     base_path = Path(base_dir) / name
     if name in FVECS_DATASETS:
         files = FVECS_DATASETS[name]
@@ -169,9 +182,42 @@ def _device_synthetic(n: int, dim: int, n_queries: int, n_clusters: int,
     return base, queries.cpu().numpy()
 
 
+def _read_cache(cpath: Path | None) -> dict | None:
+    """The four arrays of a cache file, or None where there is no file or
+    it cannot be read (another process may be writing one in place)."""
+    if cpath is None or not cpath.exists():
+        return None
+    try:
+        with np.load(cpath) as z:
+            return {"base": z["base"], "queries": z["queries"],
+                    "groundtruth": z["groundtruth"], "dim": int(z["dim"])}
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None
+
+
+def _write_cache(cpath: Path | None, data: dict) -> None:
+    """Write the cache file under a temporary name in its directory, then
+    rename it: a reader sees the whole file or none, also when two
+    processes draw the same set."""
+    if cpath is None:
+        return
+    cpath.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=cpath.parent, prefix=cpath.stem,
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, base=data["base"], queries=data["queries"],
+                     groundtruth=data["groundtruth"], dim=data["dim"])
+        os.replace(tmp, cpath)
+    except BaseException:
+        Path(tmp).unlink(missing_ok=True)
+        raise
+
+
 def make_synthetic(name: str = "synthetic", n: int = 100_000,
                    dim: int = 128, n_queries: int = 1000, gt_k: int = 100,
                    n_clusters: int = 256, seed: int = 0,
+                   cache_dir: str | None = DEFAULT_CACHE_DIR,
                    gt_device=None) -> dict:
     """Clustered gaussian data with exact ground truth.
 
@@ -182,44 +228,54 @@ def make_synthetic(name: str = "synthetic", n: int = 100_000,
     draws the store on the device again (a store kept alive beside a built
     index would double its footprint).  Otherwise base and queries come
     from the host numpy recipe (bit-identical for the same seed) and the
-    ground truth is computed on the host, or on `gt_device` if given."""
-    n, dim, metric = synthetic_shape(name, n, dim)
-    dev = None if gt_device is None else torch.device(gt_device)
-    if (dev is not None and dev.type == "cuda"
-            and n * dim >= DEVICE_DATA_MIN_ELEMENTS):
-        base_dev, queries = _device_synthetic(n, dim, n_queries, n_clusters,
-                                              seed, dev)
-        gt = device_groundtruth(base_dev, queries, gt_k, metric, dev)
+    ground truth is computed on the host, or on `gt_device` if given.
 
+    The four arrays (base, queries, groundtruth, dim) are cached in one
+    ``.npz`` under `cache_dir`, keyed by every parameter; None turns the
+    cache off.  The host recipe's key and file are the JAX package's own,
+    so each package reads the other's.  The device recipe's key ends in
+    ``-dev-torch<DEVICE_GENERATOR_VERSION>``: the JAX package's ``-dev``
+    files hold what its own accelerator drew, which this generator is not
+    proven to reproduce bit for bit, so they are never read, and neither
+    is a file that an earlier version of this generator wrote."""
+    n, dim, metric = synthetic_shape(name, n, dim)
+    key = f"{name}-{n}-{dim}-{n_queries}-{gt_k}-{n_clusters}-{seed}"
+    dev = None if gt_device is None else torch.device(gt_device)
+    use_device = (dev is not None and dev.type == "cuda"
+                  and n * dim >= DEVICE_DATA_MIN_ELEMENTS)
+    if use_device:
+        key += f"-dev-torch{DEVICE_GENERATOR_VERSION}"
+    cpath = Path(cache_dir) / f"{key}.npz" if cache_dir else None
+    data = _read_cache(cpath)
+    if data is None:
+        if use_device:
+            base_dev, queries = _device_synthetic(n, dim, n_queries,
+                                                  n_clusters, seed, dev)
+            gt = device_groundtruth(base_dev, queries, gt_k, metric, dev)
+            base = base_dev.cpu().numpy()
+            del base_dev
+        else:
+            rng = np.random.default_rng(seed)
+            centers = rng.standard_normal((n_clusters, dim)).astype(
+                np.float32) * 3.0
+            base = centers[rng.integers(0, n_clusters, n)] + \
+                rng.standard_normal((n, dim)).astype(np.float32)
+            qi = rng.choice(n, n_queries, replace=False)
+            queries = base[qi] + 0.1 * rng.standard_normal(
+                (n_queries, dim)).astype(np.float32)
+            if gt_device is None:
+                gt = _host_groundtruth(base, queries, gt_k, metric)
+            else:
+                gt = device_groundtruth(base, queries, gt_k, metric,
+                                        gt_device)
+        data = {"base": base, "queries": queries, "groundtruth": gt,
+                "dim": dim}
+        _write_cache(cpath, data)
+    data["metric"] = metric
+    if use_device:
         def base_dev_factory():
             return _device_synthetic(n, dim, n_queries, n_clusters, seed,
                                      dev)[0]
 
-        return {
-            "base": base_dev.cpu().numpy(),
-            "queries": queries,
-            "groundtruth": gt,
-            "dim": dim,
-            "metric": metric,
-            "base_dev_factory": base_dev_factory,
-        }
-    rng = np.random.default_rng(seed)
-    centers = rng.standard_normal((n_clusters, dim)).astype(np.float32) * 3.0
-    base = centers[rng.integers(0, n_clusters, n)] + rng.standard_normal(
-        (n, dim)
-    ).astype(np.float32)
-    qi = rng.choice(n, n_queries, replace=False)
-    queries = base[qi] + 0.1 * rng.standard_normal((n_queries, dim)).astype(
-        np.float32
-    )
-    if gt_device is None:
-        gt = _host_groundtruth(base, queries, gt_k, metric)
-    else:
-        gt = device_groundtruth(base, queries, gt_k, metric, gt_device)
-    return {
-        "base": base,
-        "queries": queries,
-        "groundtruth": gt,
-        "dim": dim,
-        "metric": metric,
-    }
+        data["base_dev_factory"] = base_dev_factory
+    return data

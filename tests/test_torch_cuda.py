@@ -204,6 +204,74 @@ def test_cuda_sharded_scan_matches_cpu(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
+def test_cuda_sharded_chunked_scan_matches_kernel_path(cuda_device):
+    """sharded_scan_search(fused=False), the per-shard chunked selection,
+    on a (1, 2) mesh of the one card against the kernel path on the same
+    store and budget; the chunked selection launches no kernel."""
+    from cphnsw_tpu_torch import ShardedScanIndex
+    from cphnsw_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(8)
+    centers = rng.standard_normal((16, 32)).astype(np.float32) * 3.0
+    base = centers[rng.integers(0, 16, 40_000)] + rng.standard_normal(
+        (40_000, 32)).astype(np.float32)
+    queries = (base[rng.choice(40_000, 96, replace=False)] + 0.05).astype(
+        np.float16)
+    mesh = _mesh(cuda_device, n_model=2)
+    idx = ShardedScanIndex(32, bits=1).build(base, mesh)
+    inner = idx._inner
+    top_c = idx._top_c(10, len(queries))
+
+    def search(**kw):
+        before = scan_keys.launches
+        ids, d = sharded.sharded_scan_search(
+            idx._store, queries, idx._signs, inner._affine_a,
+            inner._affine_b, inner._n, mesh, kappa=1.0, k=10, top_c=top_c,
+            **kw)
+        return ids.cpu().numpy(), d.cpu().numpy(), scan_keys.launches - before
+
+    ids_k, _, launched_k = search()
+    assert launched_k >= 2                    # one per shard at least
+    ids_c, d_c, launched_c = search(fused=False)
+    assert launched_c == 0
+    assert (ids_c[:, :, None] == ids_k[:, None, :]).any(-1).mean() >= 0.99
+    # an explicit plan of several binned chunks per shard
+    rows = idx._store.rows
+    assert rows % 4 == 0
+    ids_p, _, launched_p = search(fused=False, chunk=rows // 4, n_eq=4, rem=0)
+    assert launched_p == 0
+    assert (ids_p[:, :, None] == ids_k[:, None, :]).any(-1).mean() >= 0.99
+    d = ((queries.astype(np.float32)[:, None, :] - base[None]) ** 2).sum(-1)
+    gt = np.argsort(d, axis=1)[:, :10]
+    assert (ids_c[:, :, None] == gt[:, None, :]).any(-1).mean() >= 0.99
+    assert np.isfinite(d_c).all()
+
+
+@pytest.mark.cuda
+def test_fma_f32_cuda_matches_cpu(cuda_device):
+    """The one-rounding multiply-add gives the same bits on the card as on
+    the CPU, on triples next to f32 midpoints and with scalar operands."""
+    from cphnsw_tpu_torch.ops.rounding import fma_f32
+
+    rng = np.random.default_rng(9)
+    n = 50_000
+    c = np.ldexp(rng.integers(1 << 23, 1 << 24, n).astype(np.float64),
+                 rng.integers(-20, 20, n)).astype(np.float32)
+    u = rng.integers(-200, 201, n) * 2.0 ** -23
+    a = (1.0 + u).astype(np.float32)
+    b = (np.spacing(np.abs(c)).astype(np.float64) / 2 * (1.0 - u)).astype(
+        np.float32)
+    t = [torch.from_numpy(x) for x in (a, b, c)]
+    want = fma_f32(*t)
+    got = fma_f32(*(x.to(cuda_device) for x in t)).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    twice = (t[0].double() * t[1].double() + t[2].double()).float()
+    assert (twice != want).sum() > 100      # the sweep reaches the fault
+    assert want[0] == fma_f32(float(a[0]), t[1][:1].to(cuda_device),
+                              float(c[0])).cpu()[0]
+
+
+@pytest.mark.cuda
 def test_cuda_sharded_graph_matches_cpu(cuda_device, tmp_path):
     """Four graph shards built on one card, then the same file searched on
     a CPU mesh."""
@@ -239,15 +307,15 @@ def test_threefry_recipe_cuda_matches_cpu(cuda_device, monkeypatch):
                        threefry.randint(ka, 4096, 0, 100, "cpu"))
     assert torch.equal(threefry.permutation(kq, 4096, "cuda").cpu(),
                        threefry.permutation(kq, 4096, "cpu"))
-    # normals within 4 ulps of the CPU's (the tests' bound against JAX)
+    # the normals bit for bit: every operation of the stream is rounded
+    # the same way on both devices
     got = threefry.normal(kn, (4096, 64), "cuda").cpu()
     want = threefry.normal(kn, (4096, 64), "cpu")
-    spacing = np.spacing(np.abs(want.numpy()))
-    assert (np.abs((got - want).numpy()) <= 4 * spacing).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     monkeypatch.setattr(datasets, "DEVICE_DATA_MIN_ELEMENTS", 4096 * 64)
     ds = datasets.make_synthetic("synthetic-4096-64d", n=4096, n_queries=50,
                                  gt_k=10, n_clusters=32, seed=2,
-                                 gt_device=cuda_device)
+                                 gt_device=cuda_device, cache_dir=None)
     base, queries = datasets._device_synthetic(4096, 64, 50, 32, 2, "cpu")
     # within 1e-5, a few ulps at the rows' magnitudes (|x| < 16)
     np.testing.assert_allclose(ds["base"], base.numpy(), rtol=0, atol=1e-5)

@@ -6,9 +6,9 @@ _device_synthetic``); the port draws the same stream in torch
 (``ops/threefry.py``).  Here both run on the CPU at 4096 x 64 with 32
 clusters and 100 queries, under JAX's default
 ``jax_threefry_partitionable=True``.  The integer draws (key splits,
-cluster assignment, query rows) must be equal; the normal draws may differ
-by a few ulps where the port's copy of XLA's log rounds differently, so
-they are held to MAX_ULPS.
+cluster assignment, query rows) must be equal, and so must the normal
+draws (MAX_ULPS = 0): the port's erf_inv, log1p and log follow the program
+XLA's CPU backend runs operation by operation, contractions included.
 """
 
 import numpy as np
@@ -25,7 +25,7 @@ from cphnsw_tpu_torch.utils import datasets as tdata
 torch.set_num_threads(2)
 
 N, DIM, N_QUERIES, N_CLUSTERS = 4096, 64, 100, 32
-MAX_ULPS = 4
+MAX_ULPS = 0
 
 
 @pytest.fixture(autouse=True)
@@ -88,12 +88,24 @@ def test_normal_draws_within_ulps(seed):
     want = np.asarray(jax.random.normal(kn_j, (N, DIM), jnp.float32))
     assert got.shape == want.shape
     assert ulps(got, want).max() <= MAX_ULPS
-    # nearly all bit-equal: only a rare log rounding differs
     assert (got == want).mean() >= 0.999
     got = threefry.normal(kc, (N_CLUSTERS, DIM), "cpu").numpy()
     want = np.asarray(jax.random.normal(kc_j, (N_CLUSTERS, DIM),
                                         jnp.float32))
     assert ulps(got, want).max() <= MAX_ULPS
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_normal_draws_bit_equal_at_2_20(seed):
+    """2^20 draws: every branch of erf_inv (w < 5 and beyond) and of log1p
+    (the rational approximation and the log) many times over."""
+    _, _, kn, _, _ = threefry.split(threefry.prng_key(seed), 5)
+    _, _, kn_j, _, _ = jax.random.split(jax.random.PRNGKey(seed), 5)
+    got = threefry.normal(kn, (1 << 20,), "cpu").numpy()
+    want = np.asarray(jax.random.normal(kn_j, (1 << 20,), jnp.float32))
+    assert (np.abs(got) > 4.0).sum() > 10      # the w >= 5 branch ran
+    differ = ulps(got, want)
+    assert (differ > 0).sum() == 0, ((differ > 0).sum(), differ.max())
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -132,7 +144,8 @@ def test_make_synthetic_uses_threefry_only_on_cuda(monkeypatch):
     assert tdata.DEVICE_DATA_MIN_ELEMENTS == 64 << 20
     monkeypatch.setattr(tdata, "DEVICE_DATA_MIN_ELEMENTS", 1)
     kw = dict(n_queries=20, gt_k=5, n_clusters=8, seed=3)
-    got = tdata.make_synthetic("synthetic-2k-16d", gt_device="cpu", **kw)
+    got = tdata.make_synthetic("synthetic-2k-16d", gt_device="cpu",
+                               cache_dir=None, **kw)
     want = jdata.make_synthetic("synthetic-2k-16d", cache_dir=None, **kw)
     assert "base_dev_factory" not in got
     assert got["base"].tobytes() == want["base"].tobytes()

@@ -120,7 +120,8 @@ def test_synthetic_shape_matches_the_generator():
                                                            "l2")
     assert tdata.synthetic_shape("synthetic-100k-1536d-ip") == (100_000, 1536,
                                                                 "ip")
-    ds = tdata.make_synthetic("synthetic-3k-8d", n_queries=5, gt_k=3)
+    ds = tdata.make_synthetic("synthetic-3k-8d", n_queries=5, gt_k=3,
+                              cache_dir=None)
     assert ds["base"].shape == (3000, 8) and ds["groundtruth"].shape == (5, 3)
     # the on-device ground-truth threshold is the JAX package's
     assert teval.DEVICE_DATA_MIN_ELEMENTS == 64 << 20

@@ -167,6 +167,72 @@ def test_search_matches_jax(data, jax_index, port_from_jax):
                                   ids_t[:7])
 
 
+def test_n_seeds_matches_jax(data, jax_index, port_from_jax):
+    """sharded_search(n_seeds=2) on JAX's own subgraphs against JAX's with
+    n_seeds=2: every shard's beam starts from two entry candidates in both
+    packages."""
+    import jax.numpy as jnp
+    _, q, gt = data
+    ids_j, _ = jsh.sharded_search(
+        jax_index._store, jnp.asarray(q), jax_index._params,
+        jax_index._signs, jax_index._mesh, bits=1, k=K,
+        max_steps=jax_index._max_steps(K), n_seeds=2, n_real=N)
+    idx = port_from_jax
+    ids_t, d_t = tsh.sharded_search(
+        idx._store, q, idx._params_dev, idx._signs, idx._mesh, bits=1, k=K,
+        max_steps=idx._max_steps(K), n_real=N, n_seeds=2)
+    ids_t, ids_j = ids_t.numpy(), np.asarray(ids_j)
+    assert overlap(ids_t, ids_j) >= MIN_OVERLAP
+    assert ((ids_t >= 0) & (ids_t < N)).all()
+    assert overlap(ids_t, gt) > 0.88
+    # the default is the facade's 4 seeds, bit for bit
+    ids_4, d_4 = tsh.sharded_search(
+        idx._store, q, idx._params_dev, idx._signs, idx._mesh, bits=1, k=K,
+        max_steps=idx._max_steps(K), n_real=N)
+    ids_f, d_f = idx.search_batch(q, k=K)
+    np.testing.assert_array_equal(ids_4.numpy(), ids_f)
+    np.testing.assert_array_equal(d_4.numpy(), d_f)
+    ids_e, _ = tsh.sharded_search(
+        idx._store, q, idx._params_dev, idx._signs, idx._mesh, bits=1, k=K,
+        max_steps=idx._max_steps(K), n_real=N, n_seeds=4)
+    np.testing.assert_array_equal(ids_e.numpy(), ids_f)
+
+
+def test_n_seeds_reaches_every_shards_beam(data, port_from_jax, monkeypatch):
+    """Every shard's beam is called with the caller's n_seeds, and the
+    argument decides the result: with no step taken the merged list holds
+    each shard's seeds and nothing else."""
+    _, q, _ = data
+    idx = port_from_jax
+    seen = []
+    real = tsh.beam.search_batch
+
+    def spy(*a, **kw):
+        seen.append(kw["n_seeds"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tsh.beam, "search_batch", spy)
+
+    def run(**kw):
+        return tsh.sharded_search(
+            idx._store, q, idx._params_dev, idx._signs, idx._mesh, bits=1,
+            k=K, n_real=N, **kw)[0].numpy()
+
+    run(max_steps=idx._max_steps(K), n_seeds=2)
+    n_shards = idx._mesh.shape["data"] * idx._mesh.shape["model"]
+    assert len(seen) >= n_shards and set(seen) == {2}
+    seen.clear()
+    run(max_steps=idx._max_steps(K))
+    assert set(seen) == {4}
+    n_model = idx._mesh.shape["model"]
+    for n_seeds in (1, 2):
+        valid = (run(max_steps=0, n_seeds=n_seeds) >= 0).sum(1)
+        # n_seeds per shard, less any shard-padding duplicate masked out
+        assert (valid <= n_seeds * n_model).all()
+        assert (valid >= n_seeds * n_model - 1).all()
+    assert ((run(max_steps=0, n_seeds=4) >= 0).sum(1) == K).all()
+
+
 def test_port_build_recall(data, jax_index, port_index):
     x, q, gt = data
     ids_t, d_t = port_index.search_batch(q, k=K)

@@ -17,7 +17,7 @@ torch.set_num_threads(2)
 def test_make_synthetic_bit_identical(name):
     kw = dict(n_queries=50, gt_k=10, n_clusters=8, seed=3)
     want = jdata.make_synthetic(name, cache_dir=None, **kw)
-    got = tdata.make_synthetic(name, **kw)
+    got = tdata.make_synthetic(name, cache_dir=None, **kw)
     assert got["metric"] == want["metric"] and got["dim"] == want["dim"]
     for key in ("base", "queries", "groundtruth"):
         assert got[key].dtype == want[key].dtype, key
@@ -26,7 +26,7 @@ def test_make_synthetic_bit_identical(name):
 
 def test_device_groundtruth_matches_host():
     data = tdata.make_synthetic("synthetic-3k-24d", n_queries=40, gt_k=10,
-                                n_clusters=8, seed=5)
+                                n_clusters=8, seed=5, cache_dir=None)
     # exact top-10 by chunked fp32 products (small chunks force the merge);
     # the same ids as the host computation (continuous data: no ties)
     gt = tdata.device_groundtruth(data["base"], data["queries"], 10,
