@@ -43,10 +43,18 @@ Phases, in order; any failed check exits non-zero:
      passes cache_dir=None);
   6. the graph drive: CPIndex(128, bits=1, engine="graph") on the same 1M x
      128d data, build + finalize (seconds per stage), one warm and 5 timed
-     search_batch(k=10) on the first 1024 queries, recall@10 >= 0.90, the
-     beam steps and ms per step (CUDA events);
+     search_batch(k=10) on the first 1024 queries, recall@10 >= 0.90 beside
+     the seconds of NNDescent, the share of them its Threefry draws take
+     on the card, and the build's peak device memory, the beam steps and
+     ms per step (CUDA events); (b) NNDescent's working graph of a 20k x
+     32d store (R = 16) built on the card and on the CPU from the same
+     Threefry keys: rows with equal edge sets >= 98% after the build and
+     >= 99.9% after one round from the same init (a seed-4 build for
+     scale), one round's priorities, sampling noise and reverse lists
+     bit-equal;
   7. a 100k x 128d 4-bit graph drive (the MSB two-stage bound), recall@10
-     >= 0.90, then save -> load into a fresh CPIndex: equal ids; (f) its
+     >= 0.90 with the same NNDescent seconds and peak memory, then save ->
+     load into a fresh CPIndex: equal ids; (f) its
      beam with rerank_width = 8 against 0 (rerank all): id overlap, each
      width warmed once and timed as the median of 5;
   8. torch.profiler over one warm 1M graph batch: device-busy share, the
@@ -67,7 +75,8 @@ Phases, in order; any failed check exits non-zero:
      and a fresh ShardedScanIndex;
  10. the sharded graph: ShardedIndex(128, bits=1, r=32) on the same data
      and mesh, build stages, pooled params and step budget, one warm and
-     3 timed searches of the first 1024 queries, recall@10 >= 0.90; then a
+     3 timed searches of the first 1024 queries, recall@10 >= 0.90 beside
+     the shards' NNDescent seconds and the build's peak memory; then a
      100k x 128d 4-bit sharded graph through save -> load: equal ids;
      (b) that graph through sharded_search(n_seeds=2) against n_seeds=4:
      k valid ids with exact distances from both, their overlap, the
@@ -100,6 +109,7 @@ import numpy as np
 import torch
 
 from cphnsw_tpu_torch import CPIndex, ScanIndex
+from cphnsw_tpu_torch.graph import nndescent
 from cphnsw_tpu_torch.kernels import scan_keys
 from cphnsw_tpu_torch.ops import hadamard, pack, quantize, rounding, threefry
 from cphnsw_tpu_torch.ops.rounding import fma_f32
@@ -140,6 +150,17 @@ RERANK_WIDTH = 8
 FMA_SWEEP = 4096
 # Queries of the per-shard chunked selection (phase 9c): one sub-batch.
 CHUNKED_QUERIES = 2048
+# NNDescent card against CPU (phase 6b): a 20k x 32d store of 32 clusters,
+# R = 16.  The card sums candidate distances in another order, which can
+# flip a near tie at rank R: one round from the same graph flips about one
+# row in 10^4, and over a build's ~10 rounds each flip changes the
+# candidates of its neighbours, so the shares of rows with equal edge sets
+# must reach 99.9% for one round and 98% for the whole build (this phase
+# measured 99.2% for the build; a build from another seed shares about
+# half of its rows).
+NND_N, NND_DIM, NND_R = 20_000, 32, 16
+NND_MIN_ROUND_ROWS = 0.999
+NND_MIN_BUILD_ROWS = 0.98
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
 # int8 tensor-core operations and HBM3 bytes per second.
 INT8_OPS_PER_S = 1979e12
@@ -366,15 +387,78 @@ def drive(name, data, bits, card):
     return idx, ids
 
 
+class NNDescentClock:
+    """Inside a `with` block: the wall seconds and calls of every
+    nndescent.run_adaptive (layer 0, upper levels, shards), each ending on
+    a device sync, and the device milliseconds of the Threefry draws made
+    inside them (CUDA events around each outermost randint / random_bits
+    call, summed once the block ends)."""
+
+    def __enter__(self):
+        self.seconds, self.calls, self._events = 0.0, 0, []
+        self._real = (nndescent.run_adaptive, threefry.randint,
+                      threefry.random_bits)
+        run_adaptive, randint, random_bits = self._real
+        depth = [0]
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                out = run_adaptive(*args, **kw)
+            finally:
+                depth[0] -= 1
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        def drawn(fn):
+            def call(*args, **kw):
+                if depth[0] != 1:           # outside NNDescent, or nested
+                    return fn(*args, **kw)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                depth[0] += 1
+                ev[0].record()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    ev[1].record()
+                    depth[0] -= 1
+                    self._events.append(ev)
+            return call
+
+        nndescent.run_adaptive = timed
+        threefry.randint = drawn(randint)
+        threefry.random_bits = drawn(random_bits)
+        return self
+
+    def __exit__(self, *exc):
+        (nndescent.run_adaptive, threefry.randint,
+         threefry.random_bits) = self._real
+        torch.cuda.synchronize()
+        self.draw_ms = sum(a.elapsed_time(b) for a, b in self._events)
+        self.draws = len(self._events)
+
+    def line(self) -> str:
+        return (f"nndescent {self.seconds:.3f} s over {self.calls} "
+                f"run_adaptive calls, its Threefry draws {self.draws} calls "
+                f"{self.draw_ms / 1e3:.3f} s on the card, build peak device "
+                f"memory {self.peak_gib:.2f} GiB")
+
+
 def graph_drive(name, data, bits, card):
     """Graph engine: build + finalize + warm + timed searches on the first
     GRAPH_QUERIES queries; returns (index, queries, ids)."""
     idx = CPIndex(DIM, bits=bits, engine="graph", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    idx.build(data["base"])
-    idx.finalize()
+    with NNDescentClock() as nnd:
+        idx.build(data["base"])
+        idx.finalize()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    nnd.peak_gib = peak_gib()
     g = idx._index
     log(f"  {name}: build+finalize {build_s:.2f} s, stages "
         f"{json.dumps(g.build_stages)}, step budget {g._step_budget}, "
@@ -391,6 +475,8 @@ def graph_drive(name, data, bits, card):
     log(f"  {name}: recall@{K}={recall:.4f} QPS={len(queries) / p50:.1f} "
         f"p50 batch latency {p50 * 1e3:.2f} ms (Q={len(queries)}, "
         f"batches {[round(x * 1e3, 2) for x in lat]} ms) [{card}]")
+    log(f"  {name}: recall@{K}={recall:.4f}, build {build_s:.2f} s, "
+        f"{nnd.line()} [{card}]")
     steps, ms = beam_steps(g, queries)
     log(f"  {name}: beam steps run {steps} (budget {g._max_steps(K)}), "
         f"{ms:.3f} ms per step, visited "
@@ -632,8 +718,10 @@ def sharded_graph_drive(name, data, bits, mesh, card):
     idx = sharded.ShardedIndex(DIM, bits=bits, r=32)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    idx.build(data["base"], mesh)
+    with NNDescentClock() as nnd:
+        idx.build(data["base"], mesh)
     build_s = time.perf_counter() - t0
+    nnd.peak_gib = peak_gib()
     p = idx._params
     log(f"  {name}: build {build_s:.2f} s, stages "
         f"{json.dumps(idx.build_stages)}, {idx._store.rows} rows per "
@@ -654,11 +742,84 @@ def sharded_graph_drive(name, data, bits, mesh, card):
         f"p50 batch latency {p50 * 1e3:.2f} ms (Q={len(queries)}, batches "
         f"{[round(x * 1e3, 2) for x in lat]} ms), peak device memory "
         f"{peak_gib():.2f} GiB [{card}]")
+    log(f"  {name}: recall@{K}={recall:.4f}, build {build_s:.2f} s, "
+        f"{nnd.line()} [{card}]")
     if ids.shape != (len(queries), K) or not np.isfinite(dists).all():
         fail(f"{name}: malformed result {ids.shape}")
     if recall < GRAPH_MIN_RECALL:
         fail(f"{name}: recall@{K} {recall} < {GRAPH_MIN_RECALL}")
     return idx, queries, ids
+
+
+def nndescent_drive(card):
+    """Phase 6b: NNDescent on one NND_N x NND_DIM store (R = NND_R, seed
+    3) on the card and on the CPU from the same Threefry keys: the share
+    of rows whose edge sets are equal after the whole build and after its
+    first round from the same random init (a build from seed 4 beside
+    them, for scale); then the second probe round's draws (its
+    reverse-list priorities, the first chunk's forward and reverse
+    sampling bits) and its reverse lists on the CPU's graph, card against
+    CPU bit for bit."""
+    rng = np.random.default_rng(1)
+    centers = rng.standard_normal((32, NND_DIM)).astype(np.float32) * 3.0
+    x = torch.from_numpy(centers[rng.integers(0, 32, NND_N)]
+                         + rng.standard_normal((NND_N, NND_DIM))
+                         .astype(np.float32))
+    ns = (x * x).sum(1)
+    xg, nsg = x.cuda(), ns.cuda()
+
+    def rows_equal(a, b) -> float:
+        return (a.cpu().sort(1).values == b.cpu().sort(1).values).all(
+            1).double().mean().item()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wg_g = nndescent.run_adaptive(xg, nsg, NND_R, seed=3)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wg_c = nndescent.run_adaptive(x, ns, NND_R, seed=3)
+    cpu_s = time.perf_counter() - t0
+    build_same = rows_equal(wg_g.ids, wg_c.ids)
+    other_seed = rows_equal(
+        nndescent.run_adaptive(xg, nsg, NND_R, seed=4).ids, wg_c.ids)
+    # the keys run_adaptive(seed=3) gives its two probe rounds
+    _, k0, k1 = threefry.split(threefry.prng_key(3 + 1), 3)
+    init = nndescent.init_random(x, ns, NND_R, seed=3)
+    round_same = rows_equal(
+        nndescent.join_round(xg, nsg, nndescent.WorkingGraph(
+            *(a.cuda() for a in init)), NND_R, k0)[0].ids,
+        nndescent.join_round(x, ns, init, NND_R, k0)[0].ids)
+    k_rev, k_join = threefry.split(k1)
+    k_fwd, k_bwd = threefry.split(threefry.split(k_join)[1], 2)
+    count = NND_N * NND_R
+
+    def draws(dev):
+        return [threefry.randint(k_rev, count, 0, 1 << 20, dev),
+                threefry.random_bits(k_fwd, 0, count, dev),
+                threefry.random_bits(k_bwd, 0, count, dev),
+                nndescent.reverse_lists(wg_c.ids.to(dev), k_rev, NND_R)]
+
+    bits_equal = [torch.equal(a.cpu(), b)
+                  for a, b in zip(draws("cuda"), draws("cpu"))]
+    log(f"  [6b] NNDescent {NND_N // 1000}k x {NND_DIM}d R={NND_R}: card "
+        f"{card_s:.3f} s, CPU {cpu_s:.3f} s; rows with equal edge sets, "
+        f"card vs CPU: build {build_same:.6f} "
+        f"({round((1 - build_same) * NND_N)} differ), first round from the "
+        f"same init {round_same:.6f} "
+        f"({round((1 - round_same) * NND_N)} differ); a seed-4 build "
+        f"{other_seed:.6f}; priorities, forward noise, reverse noise, "
+        f"reverse lists equal {bits_equal} [{card}]")
+    if not all(bits_equal):
+        fail(f"NNDescent's Threefry draws differ between the card and the "
+             f"CPU: {bits_equal}")
+    if round_same < NND_MIN_ROUND_ROWS or build_same < NND_MIN_BUILD_ROWS:
+        fail(f"NNDescent on the card against the CPU: rows equal "
+             f"{round_same} after a round (< {NND_MIN_ROUND_ROWS}?), "
+             f"{build_same} after the build (< {NND_MIN_BUILD_ROWS}?)")
+    return dict(card_s=card_s, cpu_s=cpu_s, build_equal_rows=build_same,
+                round_equal_rows=round_same, seed4_equal_rows=other_seed,
+                draws_equal=all(bits_equal))
 
 
 def cli_drive(card):
@@ -1350,6 +1511,7 @@ def main():
     graph_launches = scan_keys.launches
     log(f"  scan_keys launches in the graph drive: {graph_launches} "
         f"(the graph path runs torch ops only)")
+    phases["nndescent"] = nndescent_drive(card)
 
     # 7. graph N-bit drive + save -> load
     log("[7] graph drive: CPIndex(128, bits=4, engine='graph') on 100k x 128d")
@@ -1451,7 +1613,8 @@ def main():
         sharded_scan_launches_per_batch=s_per_batch,
     )]
     phases["fma_f32"] = fma
-    log(f"phases 2 (fma_f32), 5a-5f, 7f, 9c, 10b: {json.dumps(phases)}")
+    log(f"phases 2 (fma_f32), 5a-5f, 6b, 7f, 9c, 10b: "
+        f"{json.dumps(phases)}")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -8,9 +8,9 @@ reachable from the level's entry by bridging unreached regions on the
 host; a batched beam descent from the top level at query time.
 
 The levels come from the same numpy seed as the JAX package, so the level
-subsets are equal; each level's NNDescent draws from its own
-``torch.Generator``, so the level graphs are held to the JAX package's by
-property (reachability, descent quality), not equality.
+subsets are equal; each level's NNDescent draws from the JAX package's
+Threefry keys (seed + 100 + level), so the level graphs equal the JAX
+package's up to a near tie that distances summed in another order flip.
 """
 
 from __future__ import annotations

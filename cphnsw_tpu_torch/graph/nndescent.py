@@ -7,18 +7,22 @@ scores every candidate with chunked gathered fp32 products and merges the
 top R per node; the adaptive round controller runs on the host around it,
 reading one update count per round.
 
-Randomness comes from one explicit ``torch.Generator`` per build, seeded
-from ``seed``.  Its stream is not JAX's Threefry, so the working graph
-differs from the JAX package's and is held to it by quality
-(``knn_graph_recall``), not equality.
+Every random value is drawn from JAX's Threefry stream
+(``ops/threefry.py``) with the JAX package's keys, split in its order:
+``init_random`` from ``PRNGKey(seed)``, the rounds from
+``PRNGKey(seed + 1)``.  So the working graph is the JAX package's, up to
+a near tie at rank R that distances summed in another order may flip.
+
+``reverse_lists`` keeps the JAX package's slot rule: a target with more
+than ``r_rev`` sources keeps ``r_rev - 1`` of them and -1 in its last
+slot, as the JAX scatter leaves it (see ``reverse_lists``).
 
 Differences from the JAX package that do not change what is computed:
 node chunks are sliced to their true length instead of padding the tail
-with clamped ids, and chunk outputs are written into preallocated tensors
-without a host sync per chunk (the CUDA caching allocator bounds the live
-set).  ``reverse_lists`` masks the entries past ``r_rev`` explicitly;
-the JAX scatter wrote them as -1 onto slot ``r_rev - 1`` as well, where
-they could overwrite that slot's real source.
+with clamped ids (a tail draws the first values of its key: a Threefry
+value depends only on the key and its flat index), and chunk outputs are
+written into preallocated tensors without a host sync per chunk (the
+CUDA caching allocator bounds the live set).
 """
 
 from __future__ import annotations
@@ -29,7 +33,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from cphnsw_tpu_torch.ops import threefry
 from cphnsw_tpu_torch.ops.estimate import full_fp32
+from cphnsw_tpu_torch.ops.rounding import fma_f32
+from cphnsw_tpu_torch.ops.threefry import Key
 
 INVALID = -1
 FLOAT_MAX = float(torch.finfo(torch.float32).max)
@@ -37,6 +44,8 @@ FLOAT_MAX = float(torch.finfo(torch.float32).max)
 # Forward/reverse list samples per join round (fixed-cap incremental join).
 SAMPLE_FWD = 4
 SAMPLE_REV = 4
+# Weight of the uniform noise under the sampling buckets, as an f32 value.
+NOISE_SCALE = float(np.float32(0.999))
 
 # Device-memory budget for a chunk's gathered candidate block
 # (b * C * P * 4 bytes).
@@ -117,14 +126,14 @@ def _new_graph(n: int, r: int, device):
     )
 
 
-def init_random(raw, norm_sq, r: int, gen: torch.Generator,
+def init_random(raw, norm_sq, r: int, seed: int = 42,
                 chunk: int | None = None) -> WorkingGraph:
     """Coupon-collector random init: a pool of ~R*ln(n/R) random
-    candidates per node, keep the R nearest.  `chunk` overrides the nodes
-    drawn per step, as in the JAX package's signature; the draws follow
-    the chunking, so another chunk gives another (equally valid) graph.
-    The build always derives it: the override is for tests that want
-    several chunks on a small store."""
+    candidates per node, keep the R nearest.  Each node chunk draws from
+    its own key, split from ``PRNGKey(seed)``, so the graph follows the
+    chunking, as in the JAX package.  `chunk` overrides the nodes drawn
+    per step; the build always derives it: the override is for tests that
+    want several chunks on a small store."""
     n = raw.shape[0]
     dev = raw.device
     pool = min(
@@ -134,12 +143,16 @@ def init_random(raw, norm_sq, r: int, gen: torch.Generator,
     pool = max(pool, min(r, n - 1))
     if chunk is None:
         chunk = _chunk_for(n, pool, raw.shape[1], 16384)
+    key = threefry.prng_key(seed)
     out = _new_graph(n, r, dev)
     for start in range(0, n, chunk):
         node_ids = torch.arange(start, min(start + chunk, n), device=dev)
         b = node_ids.shape[0]
-        cand = torch.randint(0, n, (b, pool), generator=gen, device=dev,
-                             dtype=torch.int32)
+        key, sub = threefry.split(key)
+        # the JAX package draws (chunk, pool) for a tail too: its rows are
+        # the first b * pool values of the key
+        cand = threefry.randint(sub, b * pool, 0, n, dev).to(
+            torch.int32).reshape(b, pool)
         d = _pairwise_dist_to_cands(raw, norm_sq, node_ids, cand)
         cand, d = _dedup_sort_pairs(cand, d)
         empty_ids = torch.full((b, r), INVALID, dtype=torch.int32,
@@ -151,18 +164,17 @@ def init_random(raw, norm_sq, r: int, gen: torch.Generator,
     return out._replace(flags=out.ids >= 0)
 
 
-def reverse_lists(ids: torch.Tensor, gen: torch.Generator,
-                  r_rev: int) -> torch.Tensor:
+def reverse_lists(ids: torch.Tensor, key: Key, r_rev: int) -> torch.Tensor:
     """Capped reverse-neighbour lists: for each edge (i -> v), i becomes a
-    reverse neighbour of v; each v keeps at most r_rev sources, chosen by
-    a random priority drawn per call."""
+    reverse neighbour of v; each v keeps its r_rev sources of the lowest
+    random priority, drawn from `key` per call, except that a v with more
+    than r_rev sources keeps r_rev - 1 of them and -1 in its last slot."""
     n, r = ids.shape
     dev = ids.device
     src = torch.arange(n, dtype=torch.int32, device=dev)[:, None].expand(
         n, r).reshape(-1)
     tgt = ids.reshape(-1)
-    prio = torch.randint(0, 1 << 20, tgt.shape, generator=gen, device=dev,
-                         dtype=torch.int32)
+    prio = threefry.randint(key, n * r, 0, 1 << 20, dev)
     tgt_safe = torch.where(tgt >= 0, tgt, n)          # invalid sorts last
     # two-pass stable sort == sort by (tgt, prio)
     order_p = torch.sort(prio, stable=True).indices
@@ -171,34 +183,48 @@ def reverse_lists(ids: torch.Tensor, gen: torch.Generator,
     src_sorted = src[order]
     first = torch.searchsorted(tgt_sorted, tgt_sorted, side="left")
     rank = torch.arange(tgt_sorted.shape[0], device=dev) - first
-    keep = (rank < r_rev) & (tgt_sorted < n)
+    real = tgt_sorted < n
+    keep = (rank < r_rev) & real
     rev = torch.full((n + 1, r_rev), INVALID, dtype=torch.int32, device=dev)
     # kept (target, rank) pairs are distinct: dropped entries go to the
     # spare row n, slot 0
     rev[torch.where(keep, tgt_sorted, n).long(),
         torch.where(keep, rank, 0)] = torch.where(keep, src_sorted, INVALID)
+    # The JAX scatter (cphnsw_tpu/graph/nndescent.py:206-209) writes every
+    # source of rank >= r_rev as -1 onto slot r_rev - 1 of its target, after
+    # the source of rank r_rev - 1; XLA-CPU keeps the last write, so an
+    # over-full target ends in -1.  Kept as the reference gives it: a fix
+    # belongs to both packages or to neither.
+    over = (rank >= r_rev) & real
+    rev[tgt_sorted[over].long(), r_rev - 1] = INVALID
     return rev[:n]
 
 
-def _prefer_new_sample(ids, flags, k_sample: int, gen: torch.Generator):
-    """Pick k_sample entries per row, preferring flagged (new) ones."""
-    noise = torch.rand(ids.shape, generator=gen, device=ids.device)
-    # new entries get priority bucket 0, old valid 1, invalid 2
+def _prefer_new_sample(ids, flags, k_sample: int, key: Key):
+    """Pick k_sample entries per row, preferring flagged (new) ones; the
+    noise is the first rows * r uniforms of `key`."""
+    rows, r = ids.shape
+    noise = threefry.uniform_from_bits(
+        threefry.random_bits(key, 0, rows * r, ids.device)).reshape(rows, r)
+    # new entries get priority bucket 0, old valid 1, invalid 2; XLA-CPU
+    # contracts bucket + noise * 0.999 into one fused multiply-add
     bucket = torch.where(ids < 0, 2.0, torch.where(flags, 0.0, 1.0))
-    _, sel = top_k_smallest(bucket + noise * 0.999, k_sample)
+    _, sel = top_k_smallest(fma_f32(noise, NOISE_SCALE, bucket), k_sample)
     return torch.gather(ids, 1, sel)
 
 
-def _join_chunk(raw, norm_sq, wg: WorkingGraph, rev, gen, start: int,
+def _join_chunk(raw, norm_sq, wg: WorkingGraph, rev, key: Key, start: int,
                 b: int):
-    """Join for the node block [start, start + b)."""
+    """Join for the node block [start, start + b): forward samples from the
+    first half of `key`'s split, reverse samples from the second."""
     n, r = wg.ids.shape
     rows = slice(start, start + b)
     idx = torch.arange(start, start + b, device=raw.device)
     my_ids = wg.ids[rows]
     my_rev = rev[rows]
-    fwd_sample = _prefer_new_sample(my_ids, wg.flags[rows], SAMPLE_FWD, gen)
-    rev_sample = _prefer_new_sample(my_rev, my_rev >= 0, SAMPLE_REV, gen)
+    k1, k2 = threefry.split(key, 2)
+    fwd_sample = _prefer_new_sample(my_ids, wg.flags[rows], SAMPLE_FWD, k1)
+    rev_sample = _prefer_new_sample(my_rev, my_rev >= 0, SAMPLE_REV, k2)
 
     # candidates: members of the sampled forward/reverse lists, plus the
     # reverse neighbours themselves
@@ -215,18 +241,22 @@ def _join_chunk(raw, norm_sq, wg: WorkingGraph, rev, gen, start: int,
 
 
 def join_round(raw, norm_sq, wg: WorkingGraph, r: int,
-               gen: torch.Generator) -> tuple[WorkingGraph, int]:
+               round_key: Key) -> tuple[WorkingGraph, int]:
     """One NNDescent join round over the whole graph (every chunk reads
-    the round's input graph); returns the update count."""
+    the round's input graph); returns the update count.  `round_key`
+    splits into the reverse lists' key and a chain that gives each chunk
+    its own."""
     n = wg.ids.shape[0]
-    rev = reverse_lists(wg.ids, gen, r)
+    k_rev, k_join = threefry.split(round_key)
+    rev = reverse_lists(wg.ids, k_rev, r)
     cand_width = (SAMPLE_FWD + SAMPLE_REV + 1) * r
     b = _chunk_for(n, cand_width, raw.shape[1], JOIN_CHUNK)
     out = _new_graph(n, r, raw.device)
     total = torch.zeros((), dtype=torch.int64, device=raw.device)
     for start in range(0, n, b):
         bb = min(b, n - start)
-        ids, dists, flags, upd = _join_chunk(raw, norm_sq, wg, rev, gen,
+        k_join, k = threefry.split(k_join)
+        ids, dists, flags, upd = _join_chunk(raw, norm_sq, wg, rev, k,
                                              start, bb)
         out.ids[start:start + bb] = ids
         out.dists[start:start + bb] = dists
@@ -241,14 +271,14 @@ def run_adaptive(raw, norm_sq, r: int, seed: int = 42,
     decay, from which the EMA smoothing, convergence threshold, minimum
     rounds (geometric extrapolation) and hard cap are derived."""
     n = raw.shape[0]
-    gen = torch.Generator(device=raw.device)
-    gen.manual_seed(seed)
-    wg = init_random(raw, norm_sq, r, gen)
+    wg = init_random(raw, norm_sq, r, seed=seed)
+    key = threefry.prng_key(seed + 1)
 
     total_edges = max(n * r, 1)
-    wg, upd0 = join_round(raw, norm_sq, wg, r, gen)
+    key, k0, k1 = threefry.split(key, 3)
+    wg, upd0 = join_round(raw, norm_sq, wg, r, k0)
     rate0 = upd0 / total_edges
-    wg, upd1 = join_round(raw, norm_sq, wg, r, gen)
+    wg, upd1 = join_round(raw, norm_sq, wg, r, k1)
     rate1 = upd1 / total_edges
 
     decay_ratio = rate1 / rate0 if rate0 > 1e-12 else 0.5
@@ -269,7 +299,8 @@ def run_adaptive(raw, norm_sq, r: int, seed: int = 42,
 
     ema_rate = ema_alpha * rate1 + (1 - ema_alpha) * rate0
     for rnd in range(2, hard_cap):
-        wg, upd = join_round(raw, norm_sq, wg, r, gen)
+        key, k = threefry.split(key)
+        wg, upd = join_round(raw, norm_sq, wg, r, k)
         rate = upd / total_edges
         ema_rate = ema_alpha * rate + (1 - ema_alpha) * ema_rate
         if verbose:

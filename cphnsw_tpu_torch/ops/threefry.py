@@ -197,10 +197,14 @@ def randint(key: Key, count: int, low: int, high: int,
     k_hi, k_lo = split(key, 2)
     span = high - low
     mult = (((1 << 16) % span) ** 2) % span
-    hi = random_bits(k_hi, 0, count, device)
-    lo = random_bits(k_lo, 0, count, device)
-    off = (((hi % span) * mult) + (lo % span)) & M32
-    return low + off % span
+    out = torch.empty(count, dtype=torch.int64, device=device)
+    for s in range(0, count, CHUNK):
+        c = min(CHUNK, count - s)
+        hi = random_bits(k_hi, s, c, device)
+        lo = random_bits(k_lo, s, c, device)
+        off = (((hi % span) * mult) + (lo % span)) & M32
+        out[s:s + c] = low + off % span
+    return out
 
 
 def permutation(key: Key, n: int, device) -> torch.Tensor:

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from cphnsw_tpu.calibration import evt as jevt
@@ -32,10 +33,19 @@ from cphnsw_tpu_torch.utils import native as tnative
 torch.set_num_threads(2)
 
 N, DIM, R = 2000, 32, 16
+# A store of several NNDescent chunks with a tail: 1024-node chunks (the
+# floor of _chunk_for) over 2500 nodes.
+N_CHUNKED, CHUNK = 2500, 1024
 # Share of equal plane words between the packages' edge codes: a code can
 # flip where a coordinate sits on a rounding or sign tie after sums taken
-# in another order.
+# in another order.  Also the share of working-graph rows whose edge sets
+# are equal: the packages sum a candidate's distance in another order, so
+# a near tie at rank R can flip.
 MIN_EQUAL = 0.999
+# Candidate distances |x|^2 + |c|^2 - 2<x, c>: the dot products are summed
+# in another order, so they agree within 1e-6 of the norms the subtraction
+# cancels, not of the distance.
+DIST_RTOL = 1e-6
 
 
 def clustered(seed, n, dim, n_clusters=24):
@@ -47,6 +57,26 @@ def clustered(seed, n, dim, n_clusters=24):
 
 def t(a):
     return torch.from_numpy(np.array(a))
+
+
+def key_of(jkey):
+    """A JAX raw PRNG key as the port's (word, word) key."""
+    return tuple(int(w) for w in np.asarray(jkey))
+
+
+def edge_sets_equal(a, b) -> np.ndarray:
+    """Per row: the two (N, R) id matrices hold the same set of edges."""
+    return (np.sort(np.asarray(a), 1) == np.sort(np.asarray(b), 1)).all(1)
+
+
+def assert_dists_close(got, want, ids, norm_sq):
+    """Distances within DIST_RTOL of |x|^2 + |c|^2 wherever the JAX slot
+    holds an edge; both sides FLOAT_MAX where it is empty."""
+    got, want, ids = np.asarray(got), np.asarray(want), np.asarray(ids)
+    valid = ids >= 0
+    scale = norm_sq[:, None] + norm_sq[np.maximum(ids, 0)]
+    assert (np.abs(got - want)[valid] <= DIST_RTOL * scale[valid]).all()
+    np.testing.assert_array_equal(got[~valid], want[~valid])
 
 
 @pytest.fixture(scope="module")
@@ -61,6 +91,12 @@ def data():
 def jax_wg(data):
     x, norm_sq, _ = data
     return jnnd.run_adaptive(jnp.asarray(x), jnp.asarray(norm_sq), R, seed=3)
+
+
+@pytest.fixture(scope="module")
+def chunked_data():
+    x = clustered(7, N_CHUNKED, DIM)
+    return x, (x ** 2).sum(1).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -236,12 +272,110 @@ def test_encode_neighbor_blocks_match(jax_build, bits):
 
 
 # ----------------------------------------------------------- nndescent
+@pytest.mark.parametrize("chunked", [False, True])
+def test_init_random_matches_jax(data, chunked_data, chunked):
+    """The derived chunk (one chunk at n = 2000), and chunk=1024 at
+    n = 2500: three chunks, each from its own split key, the last a tail
+    that draws the first values of its key."""
+    x, norm_sq = chunked_data if chunked else data[:2]
+    kw = dict(seed=3, chunk=CHUNK if chunked else None)
+    want = jnnd.init_random(jnp.asarray(x), jnp.asarray(norm_sq), R, **kw)
+    got = tnnd.init_random(t(x), t(norm_sq), R, **kw)
+    # the same draws, each row's pool kept in the same order: ids equal
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_array_equal(got.flags.numpy(), np.asarray(want.flags))
+    assert_dists_close(got.dists, want.dists, want.ids, norm_sq)
+
+
+@pytest.mark.parametrize("case", ["working_graph", "all_old"])
+def test_prefer_new_sample_matches_jax(jax_wg, case):
+    """The sampler's noise is the key's uniforms, scored bucket + 0.999 *
+    noise with one rounding, as XLA-CPU contracts it inside the jitted
+    join (op by op, JAX rounds twice): equal samples.  In the all-old case
+    (16384 rows of 16 old entries, key 28) row 7133 samples otherwise if
+    the score is rounded twice."""
+    if case == "working_graph":
+        ids, flags = np.asarray(jax_wg.ids), np.asarray(jax_wg.flags)
+        flags = flags & (np.arange(N)[:, None] % 3 > 0)    # some old ones
+        ids = np.where(np.arange(R)[None] % 5 == 4, -1, ids)  # some empty
+        key = jax.random.PRNGKey(21)
+    else:
+        ids = np.tile(np.arange(16, dtype=np.int32), (16384, 1))
+        flags = np.zeros(ids.shape, bool)
+        key = jax.random.PRNGKey(28)
+    sample = jax.jit(jnnd._prefer_new_sample, static_argnums=2)
+    want, _ = sample(jnp.asarray(ids), jnp.asarray(flags), tnnd.SAMPLE_FWD,
+                     key)
+    got = tnnd._prefer_new_sample(t(ids), t(flags), tnnd.SAMPLE_FWD,
+                                  key_of(key))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _heavy_in_degree():
+    """Ids drawn from 0..19 on 200 rows of 8: every target has far more
+    than r_rev sources."""
+    rng = np.random.default_rng(4)
+    return rng.integers(0, 20, (200, 8)).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["working_graph", "heavy_in_degree"])
+@pytest.mark.parametrize("r_rev", [2, 16])
+def test_reverse_lists_match_jax(jax_wg, case, r_rev):
+    ids = np.asarray(jax_wg.ids) if case == "working_graph" \
+        else _heavy_in_degree()
+    key = jax.random.split(jax.random.PRNGKey(9))[1]
+    want = np.asarray(jnnd.reverse_lists(jnp.asarray(ids), key, r_rev))
+    got = tnnd.reverse_lists(t(ids), key_of(key), r_rev).numpy()
+    # integer draws and stable sorts: equal, the -1 last slots included
+    np.testing.assert_array_equal(got, want)
+    if case == "heavy_in_degree":
+        assert (want[:20, r_rev - 1] == -1).all()
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_join_round_matches_jax(data, chunked_data, jax_wg, chunked,
+                                monkeypatch):
+    """One round with the same round key: on JAX's working graph (one
+    chunk), and from JAX's chunk=1024 random init at n = 2500 with
+    JOIN_CHUNK = 1024 in both packages (three chunks, each from the next
+    key of the chain, and a tail)."""
+    if chunked:
+        x, norm_sq = chunked_data
+        monkeypatch.setattr(jnnd, "JOIN_CHUNK", CHUNK)
+        monkeypatch.setattr(tnnd, "JOIN_CHUNK", CHUNK)
+        wg = jnnd.init_random(jnp.asarray(x), jnp.asarray(norm_sq), R,
+                              seed=5, chunk=CHUNK)
+    else:
+        x, norm_sq = data[:2]
+        wg = jax_wg
+    key = jax.random.PRNGKey(17)
+    want, upd_j = jnnd.join_round(jnp.asarray(x), jnp.asarray(norm_sq), wg,
+                                  R, key)
+    got, upd_t = tnnd.join_round(t(x), t(norm_sq),
+                                 tnnd.WorkingGraph(*map(t, wg)), R,
+                                 key_of(key))
+    ids_j, ids_t = np.asarray(want.ids), got.ids.numpy()
+    same = (ids_t == ids_j).all(1)
+    # the same samples and candidates everywhere; where the packages'
+    # distances flip a near tie at rank R a row differs, at most 0.1% of
+    # rows, each changing at most R flags of the update count
+    assert same.mean() >= MIN_EQUAL, f"{(~same).sum()} of {len(same)} rows"
+    np.testing.assert_array_equal(got.flags.numpy()[same],
+                                  np.asarray(want.flags)[same])
+    assert abs(upd_t - upd_j) <= R * (~same).sum(), (upd_t, upd_j)
+    # even on a flipped row the kept distances are those of a near tie
+    assert_dists_close(got.dists, want.dists, want.ids, norm_sq)
+
+
 def test_nndescent_quality_matches_jax(data, jax_wg):
     x, norm_sq, _ = data
     wg = tnnd.run_adaptive(t(x), t(norm_sq), R, seed=3)
     got = tnnd.knn_graph_recall(wg, x, k=10)
     want = jnnd.knn_graph_recall(jax_wg, x, k=10)
     assert got >= want - 0.02, (got, want)
+    # JAX's keys in JAX's order: the JAX package's graph, up to near ties
+    same = edge_sets_equal(wg.ids.numpy(), jax_wg.ids)
+    assert same.mean() >= MIN_EQUAL, f"{(~same).sum()} of {N} rows differ"
     ids = wg.ids.numpy()
     assert not (ids == np.arange(N)[:, None]).any()
     for row in ids:
@@ -254,17 +388,21 @@ def test_nndescent_quality_matches_jax(data, jax_wg):
 @pytest.mark.parametrize("r_rev", [2, 16])
 def test_reverse_lists_are_capped_in_edges(data, jax_wg, r_rev):
     ids = t(jax_wg.ids)
-    gen = torch.Generator().manual_seed(0)
-    rev = tnnd.reverse_lists(ids, gen, r_rev).numpy()
+    rev = tnnd.reverse_lists(ids, key_of(jax.random.PRNGKey(0)),
+                             r_rev).numpy()
     fwd = ids.numpy()
     assert rev.shape == (N, r_rev)
     in_deg = np.bincount(fwd[fwd >= 0], minlength=N)
     for v in range(N):
         srcs = rev[v][rev[v] >= 0]
-        # every source is a real in-edge, each once, at most r_rev of them
+        # every source is a real in-edge, each once; an over-full target
+        # keeps r_rev - 1 and -1 in its last slot, as the JAX package does
         assert all(v in fwd[s] for s in srcs)
         assert len(np.unique(srcs)) == len(srcs)
-        assert len(srcs) == min(in_deg[v], r_rev)
+        if in_deg[v] <= r_rev:
+            assert len(srcs) == in_deg[v]
+        else:
+            assert len(srcs) == r_rev - 1 and rev[v, -1] == -1
 
 
 def test_build_graph_end_to_end(data):

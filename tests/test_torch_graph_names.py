@@ -99,18 +99,32 @@ def test_encode_neighbor_blocks_chunk_changes_nothing(small_graph, chunk):
 
 
 def test_init_random_chunk_override(small_graph):
-    """A chunk override draws per chunk: the default chunk passed in is the
-    default call, another chunk still yields a valid working graph."""
+    """A chunk override draws per chunk from the chain of keys split from
+    PRNGKey(seed), as the JAX package's does: the default chunk passed in
+    is the default call, and another chunk gives JAX's graph for that
+    chunk (another graph, in both packages alike)."""
+    from cphnsw_tpu.graph import nndescent as jnnd
+
     raw, norm_sq, _, _, _ = small_graph
 
     def run(**kw):
-        gen = torch.Generator().manual_seed(5)
-        return tnnd.init_random(raw, norm_sq, R, gen, **kw)
+        return tnnd.init_random(raw, norm_sq, R, seed=5, **kw)
 
     base = run()
     same = run(chunk=N)
     np.testing.assert_array_equal(same.ids.numpy(), base.ids.numpy())
-    other = run(chunk=100)
-    assert other.ids.shape == (N, R)
-    assert ((other.ids >= 0) & (other.ids < N)).all()
-    assert (other.ids != torch.arange(N)[:, None]).all()
+    for chunk in (100, 128):
+        other = run(chunk=chunk)
+        want = jnnd.init_random(jnp.asarray(raw.numpy()),
+                                jnp.asarray(norm_sq.numpy()), R, seed=5,
+                                chunk=chunk)
+        # the same draws and stable sorts: equal ids; distances summed in
+        # another order: within 1e-6 of the norms the subtraction cancels
+        np.testing.assert_array_equal(other.ids.numpy(),
+                                      np.asarray(want.ids))
+        ids = np.asarray(want.ids)
+        ns = norm_sq.numpy()
+        scale = ns[:, None] + ns[np.maximum(ids, 0)]
+        assert (np.abs(other.dists.numpy() - np.asarray(want.dists))
+                <= 1e-6 * scale).all()
+    assert not np.array_equal(other.ids.numpy(), base.ids.numpy())

@@ -3,8 +3,10 @@
 One JAX ShardedIndex (n = 1507, dim = 24, R = 16 on a (2, 4) mesh: n is
 not a multiple of the 4 shards, so shard-padding rows are live) is saved
 and loaded by the port, so both packages search the same subgraphs with
-the same pooled params.  The port's own build draws NNDescent from another
-random stream than JAX's, so it is held by recall on the same data.
+the same pooled params.  The port's own build draws each shard's
+NNDescent from the JAX package's Threefry keys (seed + shard), so it is
+held to JAX's build by every shard's graph, its search ids and its recall
+on the same data.
 """
 
 import json
@@ -24,6 +26,9 @@ torch.set_num_threads(2)
 
 N, DIM, R, K = 1507, 24, 16, 10
 MIN_OVERLAP = 0.99
+# Share of a shard's rows whose edge sets equal the JAX package's: the
+# packages sum distances in another order, so a near tie can flip a row.
+MIN_EQUAL_ROWS = 0.999
 
 
 def overlap(a, b) -> float:
@@ -237,8 +242,9 @@ def test_port_build_recall(data, jax_index, port_index):
     x, q, gt = data
     ids_t, d_t = port_index.search_batch(q, k=K)
     ids_j, _ = jax_index.search_batch(q, k=K)
-    # independent builds (different NNDescent streams): recall within 0.02
     assert overlap(ids_t, gt) >= overlap(ids_j, gt) - 0.02
+    # the same subgraphs searched alike: the beam's selection is approximate
+    assert overlap(ids_t, ids_j) >= MIN_OVERLAP
     assert ids_t.dtype == np.int64 and d_t.dtype == np.float32
     assert 16 <= port_index._step_budget[10] <= 512
     assert set(port_index.build_stages) == {"shard_graphs", "calibrate",
@@ -246,6 +252,30 @@ def test_port_build_recall(data, jax_index, port_index):
     # the shard-padding rows (original id >= n) sit in the last shard
     orig = port_index._store.shards[0][3].orig_ids.numpy()
     assert (orig >= N).sum() == 4 * port_index._store.rows - N
+
+
+def _shard_edges(nbr_ids, orig_ids):
+    """A shard's BFS-permuted (N_s, R) neighbour ids as edges between the
+    caller's ids, rows in the order of their caller's id."""
+    nbr_ids, orig_ids = np.asarray(nbr_ids), np.asarray(orig_ids)
+    mapped = np.where(nbr_ids >= 0, orig_ids[np.maximum(nbr_ids, 0)], -1)
+    return np.sort(mapped[np.argsort(orig_ids, kind="stable")], axis=1)
+
+
+def test_port_build_graphs_equal_jax(jax_index, port_index):
+    """Every shard's graph, built from seed + shard's keys in both
+    packages: the JAX package's on >= 99.9% of its rows."""
+    shards = port_index._store.shards[0]
+    assert len(shards) == np.asarray(jax_index._store.nbr_ids).shape[0]
+    for s, sh in enumerate(shards):
+        np.testing.assert_array_equal(
+            np.sort(sh.orig_ids.numpy()),
+            np.sort(np.asarray(jax_index._store.orig_ids[s])))
+        got = _shard_edges(sh.neighbors.ids.numpy(), sh.orig_ids.numpy())
+        want = _shard_edges(jax_index._store.nbr_ids[s],
+                            jax_index._store.orig_ids[s])
+        share = float((got == want).all(1).mean())
+        assert share >= MIN_EQUAL_ROWS, (s, share)
 
 
 def test_pad_rows_masked(data, port_index, port_from_jax):
