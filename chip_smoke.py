@@ -84,11 +84,28 @@ Phases, in order; any failed check exits non-zero:
      n_seeds ids per shard in every merged list;
  11. the CLI: python -m cphnsw_tpu_torch --bits 1 --device cuda on
      synthetic-20k-64d as a subprocess, results and the data cache in a
-     temporary directory.
-The graph path has no hand-written kernel (the JAX package's Pallas
-beam-step kernel was retired before the port); its device work is torch
-ops.  The last lines are the kernels' JSON, the card's name and power
-limit as nvidia-smi reports them, and the result JSON.
+     temporary directory;
+ 12. the JAX package's recorded scan workloads (WORKLOADS, as its
+     results/<name>_results.json name them): synthetic-1m-128d,
+     synthetic-1m-960d (P 1024), synthetic-100k-1536d-ip (inner product,
+     1537 columns, P 2048: the streamed query tile) at 1 and 4 bits, and
+     synthetic-10m-96d (10,240 bins, 977 groups) at k = 100 and 10.  Each
+     is drawn by make_synthetic's default (the card, Threefry recipe, 1000
+     queries, ground truth on the card, no cache) and run through
+     eval.bench_one_case at k = 100 (build from the device store factory,
+     one warm and 3 timed passes): build seconds per stage and the build's
+     peak device memory, recall@1/10/100 beside the JAX record's, QPS,
+     p50 batch latency, top_c and budget ranks beside the record's,
+     launches per batch (at least one); then the kernel against its plain
+     version on the first search's real sketch operands, bit-equal (at
+     10M on the first 64 queries of the 1024-query launch), with its ms,
+     bound and the torch._int_mm yardstick.
+The graph path has no
+hand-written kernel (the JAX package's Pallas beam-step kernel was retired
+before the port); its device work is torch ops.  The last lines are the
+kernels' JSON (with every launch shape the kernel was checked at), the
+card's name and power limit as nvidia-smi reports them, and the result
+JSON.
 """
 
 from __future__ import annotations
@@ -116,8 +133,8 @@ from cphnsw_tpu_torch.ops.rounding import fma_f32
 from cphnsw_tpu_torch.parallel import sharded
 from cphnsw_tpu_torch.search import beam, bruteforce, scan
 from cphnsw_tpu_torch.utils import datasets, native
-from cphnsw_tpu_torch.utils.datasets import make_synthetic
-from cphnsw_tpu_torch.utils.eval import recall_at_k
+from cphnsw_tpu_torch.utils.datasets import make_synthetic, synthetic_shape
+from cphnsw_tpu_torch.utils.eval import bench_one_case, recall_at_k
 
 N_MAIN, N_SMALL, DIM, N_QUERIES, K = 1_000_000, 100_000, 128, 8192, 10
 SUB_BATCH = 2048
@@ -161,6 +178,27 @@ CHUNKED_QUERIES = 2048
 NND_N, NND_DIM, NND_R = 20_000, 32, 16
 NND_MIN_ROUND_ROWS = 0.999
 NND_MIN_BUILD_ROWS = 0.98
+# The kernel's plain version is held against it on at most this many
+# (query, row) elements: above, on the first PLAIN_QUERIES queries of the
+# launch (at 10M rows its group loop takes ~1000 groups of 10,240 bins).
+PLAIN_MAX_ELEMENTS = 1 << 31
+PLAIN_QUERIES = 64
+# Phase 12: the JAX package's recorded scan workloads, as its results files
+# (results/<name>_results.json) name them: the Threefry device recipe, 1000
+# queries, ground truth on the card, WORKLOAD_RUNS timed passes; (name, the
+# k of each timed run, bit widths).
+WORKLOADS = [
+    ("synthetic-1m-128d", (100,), (1,)),
+    ("synthetic-1m-960d", (100,), (1,)),
+    ("synthetic-100k-1536d-ip", (100,), (1, 4)),
+    ("synthetic-10m-96d", (100, 10), (1,)),
+]
+WORKLOAD_RUNS = 3
+# A recall@10 more than this below the JAX package's record is flagged.
+RECORD_GAP = 0.005
+# The K step of an int8 wgmma: a launch's operations are counted over the
+# store's columns that hold data, rounded up to it (the rest is zero pad).
+MMA_K = 32
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
 # int8 tensor-core operations and HBM3 bytes per second.
 INT8_OPS_PER_S = 1979e12
@@ -198,11 +236,12 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
-def kernel_bound(rows, p, q, bins):
+def kernel_bound(rows, p, q, bins, cols):
     """(ms, roof): the least time the card could take for one launch, the
-    larger of its int8 operations at the peak rate and its bytes (each
-    input read once, the key planes written once) at the memory rate."""
-    ops = 2 * q * rows * p
+    larger of its int8 operations over the `cols` columns that hold data
+    (rounded up to MMA_K) at the peak rate and its bytes (each padded input
+    read once, the key planes written once) at the memory rate."""
+    ops = 2 * q * rows * min(p, -(-cols // MMA_K) * MMA_K)
     nbytes = rows * p + 6 * rows * 4 + q * p + q * 4 + q * 5 * 4 + \
         q * scan_keys.FUSED_TOPM * bins * 4
     by_ops, by_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -224,30 +263,45 @@ def int_mm_ms(codes, q8):
     return ms
 
 
-def check_kernel(name, operands, bins, card, results, yardstick=True):
+def check_kernel(name, operands, bins, card, results, yardstick=True,
+                 time_plain=True, cols=None):
     """Kernel vs plain version on the same device tensors: bit-equal keys,
     both median times, the bound and the product-only yardstick.  A shape
     whose group axis is split is also timed unsplit (splits=1), and its
-    merge kernel's launches are counted."""
+    merge kernel's launches are counted.  Where the plain version's
+    (queries x rows) work exceeds PLAIN_MAX_ELEMENTS, it runs on the first
+    PLAIN_QUERIES queries and the kernel's keys of those queries (from the
+    whole launch) are held against it.  time_plain=False times the plain
+    version's one comparison call instead of a median of TIMED_RUNS.
+    cols: the store's columns that hold data (default: all P)."""
     (rows, p), q = operands[0].shape, operands[2].shape[0]
+    cols = p if cols is None else cols
     plan = scan_keys.launch_plan(q, p, bins, rows // bins, torch.cuda.
                                  get_device_properties(0).
                                  multi_processor_count)
+    plain_q = q if q * rows <= PLAIN_MAX_ELEMENTS else PLAIN_QUERIES
+    plain_ops = operands[:2] + [t[:plain_q] for t in operands[2:]]
     merges = scan_keys.merge_launches
-    got = scan_keys.fused_scan_keys(*operands, bins)
+    got = scan_keys.fused_scan_keys(*operands, bins)[:plain_q]
     merges = scan_keys.merge_launches - merges
-    want = scan_keys.scan_keys_reference(*operands, bins)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+    ev[0].record()
+    want = scan_keys.scan_keys_reference(*plain_ops, bins)
+    ev[1].record()
     torch.cuda.synchronize()
+    plain_once_ms = ev[0].elapsed_time(ev[1])
     equal = (got == want).double().mean().item()
     max_err = (got.long() - want.long()).abs().max().item()
     if plan.splits > 1 and not torch.equal(
-            scan_keys.fused_scan_keys(*operands, bins, splits=1), want):
+            scan_keys.fused_scan_keys(*operands, bins, splits=1)[:plain_q],
+            want):
         fail(f"{name}: the unsplit kernel's keys differ")
     del got, want
     ms = median_ms(lambda: scan_keys.fused_scan_keys(*operands, bins))
     plain_ms = median_ms(
-        lambda: scan_keys.scan_keys_reference(*operands, bins))
-    bound_ms, roof = kernel_bound(rows, p, q, bins)
+        lambda: scan_keys.scan_keys_reference(*plain_ops, bins)) \
+        if time_plain else plain_once_ms
+    bound_ms, roof = kernel_bound(rows, p, q, bins, cols)
     mm_ms = int_mm_ms(operands[0], operands[2]) if yardstick else None
     unsplit_ms = None
     if plan.splits > 1:
@@ -259,15 +313,21 @@ def check_kernel(name, operands, bins, card, results, yardstick=True):
         if merges != 1:
             fail(f"{name}: the split call launched merge_kernel {merges} "
                  f"times")
+    compared = "all queries" if plain_q == q else \
+        f"the first {plain_q} queries of the {q}-query launch"
     log(f"  {name}: rows={rows} P={p} Q={q} bins={bins} "
-        f"splits={plan.splits} keys_equal={equal} max_abs_err={max_err} "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms="
-        f"{bound_ms:.4f} ({roof}) roofline_share={bound_ms / ms:.4f} "
+        f"splits={plan.splits} keys_equal={equal} ({compared}) "
+        f"max_abs_err={max_err} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f}"
+        f"{'' if time_plain else ' (one call)'} bound_ms="
+        f"{bound_ms:.4f} ({roof}, {cols} of {p} columns) "
+        f"roofline_share={bound_ms / ms:.4f} "
         f"int_mm_ms={mm_ms if mm_ms is None else round(mm_ms, 4)} [{card}]")
     if equal != 1.0:
         fail(f"{name}: kernel keys differ from the plain version "
              f"(equal fraction {equal})")
-    results.append(dict(mode=name, ms=ms, plain_ms=plain_ms,
+    results.append(dict(mode=name, rows=rows, p=p, cols=cols, q=q, bins=bins,
+                        plain_queries=plain_q, ms=ms, plain_ms=plain_ms,
                         max_abs_err=max_err, bound_ms=bound_ms, bound_by=roof,
                         roofline_share=bound_ms / ms, int_mm_ms=mm_ms,
                         splits=plan.splits, unsplit_ms=unsplit_ms,
@@ -319,14 +379,15 @@ def estimate_operands(raw, n, bits, signs, qpad, bins, rows_kpad):
     return [codes, aux, qc.q_u.to(torch.int8), w_fs, y_aux]
 
 
-def stage_split(index, queries, card):
-    """Median ms of each search stage on one sub-batch, measured with CUDA
-    events around the stages of scan_search's sketch branch."""
+def stage_split(index, queries, card, k=K, sub_batch=SUB_BATCH):
+    """Median ms of each search stage on one sub-batch of at most
+    sub_batch queries at k, measured with CUDA events around the stages of
+    scan_search's sketch branch."""
     arrays, sketch, n = index._arrays, index._rerank_sketch(), index.size
     n_pad, p = arrays.raw.shape
-    surv = scan._rerank_survivors(K, index._budget.top_c(K, n))
+    surv = scan._rerank_survivors(k, index._budget.top_c(k, n))
     bins, _, rows_kpad = scan_keys.fused_bin_plan(n_pad, surv)
-    q16 = queries[:SUB_BATCH].astype(np.float16)
+    q16 = queries[:sub_batch].astype(np.float16)
     names = ["query_encode", "sketch_quantize", "store_operands", "kernel",
              "decode", "rerank"]
     samples = {k: [] for k in names}
@@ -345,14 +406,14 @@ def stage_split(index, queries, card):
         ev[4].record()
         cand = scan._decode_keys(keys, surv, bins)
         ev[5].record()
-        scan._rerank(arrays.raw, arrays.norm_sq, qpad, qnorm, cand, n, K)
+        scan._rerank(arrays.raw, arrays.norm_sq, qpad, qnorm, cand, n, k)
         ev[6].record()
         torch.cuda.synchronize()
         if it:
             for i, name in enumerate(names):
                 samples[name].append(ev[i].elapsed_time(ev[i + 1]))
-    split = {k: round(statistics.median(v), 4) for k, v in samples.items()}
-    log(f"  stage split, ms per {SUB_BATCH}-query sub-batch: "
+    split = {s: round(statistics.median(v), 4) for s, v in samples.items()}
+    log(f"  stage split, ms per {len(q16)}-query sub-batch at k={k}: "
         f"{json.dumps(split)} [{card}]")
     return split
 
@@ -1388,6 +1449,142 @@ def sharded_seeds_drive(idx, queries, base, mesh, card):
     return dict(overlap=over, steps_2=steps[2], steps_4=steps[4])
 
 
+class BuildSpy:
+    """Inside a `with` block: the last CPIndex finalized (kept alive), the
+    peak device memory of its build (build + finalize, read as finalize
+    returns; the peak is reset on entry) and the operands of the first
+    scan_keys launch that search.scan makes (a search's real kernel
+    operands at the shape it launches)."""
+
+    def __enter__(self):
+        self.index = self.peak_gib = self.operands = None
+        self._real = (CPIndex.finalize, scan.fused_scan_keys)
+        finalize, launch = self._real
+
+        def finalized(idx, *args, **kw):
+            out = finalize(idx, *args, **kw)
+            torch.cuda.synchronize()
+            self.index, self.peak_gib = idx, peak_gib()
+            return out
+
+        def launched(*args, **kw):
+            if self.operands is None:
+                self.operands = args
+            return launch(*args, **kw)
+
+        CPIndex.finalize, scan.fused_scan_keys = finalized, launched
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return self
+
+    def __exit__(self, *exc):
+        CPIndex.finalize, scan.fused_scan_keys = self._real
+
+
+def jax_record(name) -> dict:
+    """The JAX package's results file of a workload: {algorithm: case}."""
+    path = Path(__file__).resolve().parent / "results" / \
+        f"{name}_results.json"
+    return {c["algorithm"]: c
+            for c in json.loads(path.read_text())["results"]}
+
+
+def workload_drive(name, ks, bits_list, card, results):
+    """Phase 12, one workload: the data as run_benchmark draws it, then per
+    bit width eval.bench_one_case at ks[0] (the build, one warm and
+    WORKLOAD_RUNS timed passes), further timed passes at ks[1:] on the same
+    index, and the kernel against its plain version on the first search's
+    real sketch operands (once per workload: the sketch does not depend on
+    the bit width)."""
+    n, dim, metric = synthetic_shape(name)
+    record = jax_record(name)
+    t0 = time.perf_counter()
+    data = make_synthetic(name, cache_dir=None)     # the card, by default
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    if "base_dev_factory" not in data:
+        fail(f"{name}: the store was not drawn on the card")
+    queries, truth = data["queries"], data["groundtruth"].astype(np.int64)
+    log(f"  {name}: {n} x {dim}d {metric}, {len(queries)} queries drawn on "
+        f"the card with ground truth@{truth.shape[1]} in {data_s:.2f} s")
+    out = {}
+    checked = False
+    for bits in bits_list:
+        label = f"{name} {bits}-bit"
+        jax_case = record.get(f"cphnsw-tpu-{bits}bit", {})
+        scan_keys.launches = 0
+        with BuildSpy() as spy:
+            case = bench_one_case(
+                data["base"], queries, truth, dim=dim, bits=bits, k=ks[0],
+                n_runs=WORKLOAD_RUNS, metric=metric,
+                base_dev_factory=data["base_dev_factory"], device="cuda")
+        launches = scan_keys.launches
+        per_batch = launches / (WORKLOAD_RUNS + 1)
+        p50_ms = len(queries) / case.qps * 1e3
+        idx = spy.index._index
+        budget = case.search_budget
+        log(f"  {label}: build {case.build_time_s} s, stages "
+            f"{json.dumps(case.build_stages_s)}, build peak device memory "
+            f"{spy.peak_gib:.2f} GiB, case peak {peak_gib():.2f} GiB "
+            f"[{card}]")
+        log(f"  {label}: k={ks[0]} recall@1/10/100 {case.recall_at_1} / "
+            f"{case.recall_at_10} / {case.recall_at_100} (JAX record "
+            f"{jax_case.get('recall_at_1')} / {jax_case.get('recall_at_10')}"
+            f" / {jax_case.get('recall_at_100')}), QPS {case.qps}, p50 batch "
+            f"{p50_ms:.2f} ms (median of {WORKLOAD_RUNS}, Q={len(queries)}), "
+            f"ADR {case.adr} [{card}]")
+        log(f"  {label}: top_c@{ks[0]} {budget['top_c_at_k']}, ranks "
+            f"{budget['ranks']} at anchors {budget['anchors']} (JAX record: "
+            f"{jax_case.get('search_budget')}); survivors "
+            f"{scan._rerank_survivors(ks[0], budget['top_c_at_k'])}; "
+            f"scan_keys launches {launches} over {WORKLOAD_RUNS + 1} batches "
+            f"= {per_batch:g} per batch")
+        if per_batch < 1:
+            fail(f"{label}: {launches} kernel launches, fewer than one per "
+                 f"batch")
+        if case.recall_at_10 < MIN_RECALL:
+            fail(f"{label}: recall@10 {case.recall_at_10} < {MIN_RECALL}")
+        if case.recall_at_10 < jax_case.get("recall_at_10", 0) - RECORD_GAP:
+            log(f"  {label}: recall@10 more than {RECORD_GAP} below the JAX "
+                f"record")
+        out[f"{bits}bit"] = dict(
+            build_s=case.build_time_s, build_stages_s=case.build_stages_s,
+            build_peak_gib=spy.peak_gib, recall_at_1=case.recall_at_1,
+            recall_at_10=case.recall_at_10, recall_at_100=case.recall_at_100,
+            jax_recall_at_10=jax_case.get("recall_at_10"), qps=case.qps,
+            p50_ms=p50_ms, top_c=budget["top_c_at_k"],
+            ranks=budget["ranks"],
+            jax_ranks=(jax_case.get("search_budget") or {}).get("ranks"),
+            launches=launches, launches_per_batch=per_batch)
+        for k in ks[1:]:
+            scan_keys.launches = 0
+            ids, _, secs = timed_searches(
+                lambda q: idx.search_batch(q, k=k), queries, WORKLOAD_RUNS)
+            p50 = statistics.median(secs)
+            recall = recall_at_k(ids, truth, k)
+            log(f"  {label}: k={k} recall@{k} {recall:.4f}, QPS "
+                f"{len(queries) / p50:.1f}, p50 batch {p50 * 1e3:.2f} ms, "
+                f"scan_keys launches {scan_keys.launches} over "
+                f"{WORKLOAD_RUNS + 1} batches [{card}]")
+            if recall < MIN_RECALL or scan_keys.launches < WORKLOAD_RUNS + 1:
+                fail(f"{label}, k={k}: recall {recall}, launches "
+                     f"{scan_keys.launches}")
+            out[f"{bits}bit"][f"k{k}"] = dict(
+                recall=recall, qps=len(queries) / p50, p50_ms=p50 * 1e3,
+                launches=scan_keys.launches)
+        if not checked:
+            out[f"{bits}bit"]["stage_ms"] = stage_split(
+                idx, queries, card, k=ks[0], sub_batch=len(queries))
+            ops = list(spy.operands)
+            check_kernel(f"workload-{name}", ops[:5], ops[5], card, results,
+                         time_plain=False, cols=dim + (metric == "ip"))
+            checked = True
+            del ops
+        del spy, idx
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # 1. environment
@@ -1591,15 +1788,27 @@ def main():
         f"{CLI_DATASET}")
     cli_drive(card)
 
+    # 12. the JAX package's recorded scan workloads
+    log(f"[12] the JAX package's recorded scan workloads, "
+        f"{time.perf_counter() - t_start:.1f} s since start")
+    workloads = {}
+    for name, ks, bits_list in WORKLOADS:
+        t0 = time.perf_counter()
+        workloads[name] = workload_drive(name, ks, bits_list, card, results)
+        log(f"  {name}: phase 12 drive {time.perf_counter() - t0:.1f} s")
+
     sk = results[0]
     kernels = [dict(
         name="scan_keys", route="cuda",
         source="cphnsw_tpu_torch/csrc/scan_keys.cu",
         replaces="cphnsw_tpu/search/scan.py:305",
         launches=launches,
-        launches_by_path=dict(main=launches, sharded_scan=s_launches,
-                              graph=graph_launches,
-                              sharded_graph=g_launches),
+        launches_by_path=dict(
+            main=launches, sharded_scan=s_launches, graph=graph_launches,
+            sharded_graph=g_launches,
+            workloads={f"{name} {b}": w["launches"]
+                       for name, cases in workloads.items()
+                       for b, w in cases.items()}),
         launches_per_batch=dict(main=per_batch, sharded_scan=s_per_batch),
         max_abs_err=max(r["max_abs_err"] for r in results),
         ms=sk["ms"], plain_ms=sk["plain_ms"], bound_ms=sk["bound_ms"],
@@ -1615,6 +1824,7 @@ def main():
     phases["fma_f32"] = fma
     log(f"phases 2 (fma_f32), 5a-5f, 6b, 7f, 9c, 10b: "
         f"{json.dumps(phases)}")
+    log(f"phase 12: {json.dumps(workloads)}")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

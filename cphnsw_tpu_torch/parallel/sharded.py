@@ -681,7 +681,9 @@ def build_sharded_store(vectors: np.ndarray, bits: int, r: int,
                         n_shards: int, signs: torch.Tensor, seed: int = 42,
                         devices=None) -> list:
     """Partition the dataset into contiguous shards and build one subgraph
-    per shard, shard s on devices[s] (default: the CPU).  Returns the
+    per shard, shard s on devices[s] (default: every shard on the current
+    CUDA device, as the JAX package builds on its default device; without
+    CUDA that default raises).  Returns the
     GraphShards; each maps its local ids to the caller's rows through
     ``orig_ids``."""
     n = len(vectors)
@@ -691,7 +693,10 @@ def build_sharded_store(vectors: np.ndarray, bits: int, r: int,
     pad = per * n_shards - n
     if pad:
         vectors = np.concatenate([vectors, vectors[-1:].repeat(pad, 0)], 0)
-    devices = devices or [torch.device("cpu")] * n_shards
+    if devices is None:
+        resolve_device("cuda")
+        devices = [torch.device("cuda", torch.cuda.current_device())
+                   ] * n_shards
     p = signs.shape[-1]
     shards = []
     for s in range(n_shards):

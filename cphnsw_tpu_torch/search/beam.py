@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from cphnsw_tpu_torch.api.scan_index import resolve_device
 from cphnsw_tpu_torch.graph.build import NeighborStore
 from cphnsw_tpu_torch.graph.nndescent import top_k_smallest
 from cphnsw_tpu_torch.ops import estimate, hadamard, pack, quantize
@@ -64,13 +65,15 @@ class SearchParams(NamedTuple):
     gamma_warmup: int
 
     @classmethod
-    def default(cls, num_levels: int = 4, device="cpu") -> "SearchParams":
+    def default(cls, num_levels: int = 4, device="cuda") -> "SearchParams":
         """The uncalibrated constants of the JAX package's
         ``SearchParams.default``: the identity affine, no slack, gamma 1
-        that never adapts; the slack ladder lies on `device`."""
+        that never adapts; the slack ladder lies on `device` (the card by
+        default, as the JAX package's lie on its default device; without
+        CUDA that default raises)."""
         return cls(affine_a=1.0, affine_b=0.0, ip_qo_floor=0.0,
                    slack_levels=torch.zeros(num_levels, dtype=torch.float32,
-                                            device=device),
+                                            device=resolve_device(device)),
                    gamma=1.0, gamma_max=1.5, gamma_beta=0.0,
                    gamma_warmup=1 << 30)
 

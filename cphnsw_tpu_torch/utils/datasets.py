@@ -3,10 +3,11 @@
 PyTorch-side counterpart of ``cphnsw_tpu/utils/datasets.py``.  Synthetic
 data follow the JAX package's two recipes, so the same seed gives the same
 base and query vectors: the host numpy recipe (bit-identical), and, for a
-store of at least DEVICE_DATA_MIN_ELEMENTS elements on a CUDA device, the
-JAX package's accelerator recipe drawn from JAX's Threefry stream on the
-card (``_device_synthetic``: bit-equal to ``jax.random`` on the CPU).
-Ground truth is the host numpy computation by default; ``gt_device``
+store of at least DEVICE_DATA_MIN_ELEMENTS elements, the JAX package's
+accelerator recipe drawn from JAX's Threefry stream on the card
+(``_device_synthetic``: bit-equal to ``jax.random`` on the CPU), as the
+JAX package draws such a store on its accelerator.  Ground truth of a
+smaller store is the host numpy computation by default; ``gt_device``
 computes it on a torch device instead, by chunked fp32 products with TF32
 off (the host computation does not scale to a million rows and thousands
 of queries).  ``make_synthetic`` keeps each set in a file on disk, as the
@@ -23,6 +24,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from cphnsw_tpu_torch.api.scan_index import resolve_device
 from cphnsw_tpu_torch.ops import threefry
 from cphnsw_tpu_torch.ops.estimate import full_fp32
 
@@ -71,8 +73,10 @@ def read_ivecs(path: Path) -> np.ndarray:
 
 def load_dataset(name: str, base_dir: Path, gt_device=None) -> dict:
     """A dataset by name: fvecs or npy files under base_dir/name, or a
-    synthetic set (ground truth on `gt_device` if given; cached under
-    make_synthetic's default directory, as in the JAX package)."""
+    synthetic set through ``make_synthetic`` with its defaults (a store of
+    at least DEVICE_DATA_MIN_ELEMENTS on the card unless `gt_device` says
+    otherwise; cached under its default directory, as in the JAX
+    package)."""
     base_path = Path(base_dir) / name
     if name in FVECS_DATASETS:
         files = FVECS_DATASETS[name]
@@ -221,14 +225,18 @@ def make_synthetic(name: str = "synthetic", n: int = 100_000,
                    gt_device=None) -> dict:
     """Clustered gaussian data with exact ground truth.
 
-    `name` may encode size (``synthetic_shape``).  On a CUDA `gt_device`,
-    a store of at least DEVICE_DATA_MIN_ELEMENTS elements is drawn there
-    from JAX's Threefry stream (``_device_synthetic``), its ground truth
-    computed there, and the result also holds ``base_dev_factory``, which
-    draws the store on the device again (a store kept alive beside a built
-    index would double its footprint).  Otherwise base and queries come
-    from the host numpy recipe (bit-identical for the same seed) and the
-    ground truth is computed on the host, or on `gt_device` if given.
+    `name` may encode size (``synthetic_shape``).  A store of at least
+    DEVICE_DATA_MIN_ELEMENTS elements goes by default (`gt_device` None)
+    to the card, "cuda", as the JAX package draws it on its accelerator;
+    without CUDA that default raises before anything is drawn, and
+    ``gt_device="cpu"`` asks for the host recipe instead.  On a CUDA
+    `gt_device` such a store is drawn there from JAX's Threefry stream
+    (``_device_synthetic``), its ground truth computed there, and the
+    result also holds ``base_dev_factory``, which draws the store on the
+    device again (a store kept alive beside a built index would double its
+    footprint).  Otherwise base and queries come from the host numpy
+    recipe (bit-identical for the same seed) and the ground truth is
+    computed on the host, or on `gt_device` if given.
 
     The four arrays (base, queries, groundtruth, dim) are cached in one
     ``.npz`` under `cache_dir`, keyed by every parameter; None turns the
@@ -240,6 +248,8 @@ def make_synthetic(name: str = "synthetic", n: int = 100_000,
     is a file that an earlier version of this generator wrote."""
     n, dim, metric = synthetic_shape(name, n, dim)
     key = f"{name}-{n}-{dim}-{n_queries}-{gt_k}-{n_clusters}-{seed}"
+    if gt_device is None and n * dim >= DEVICE_DATA_MIN_ELEMENTS:
+        gt_device = resolve_device("cuda")
     dev = None if gt_device is None else torch.device(gt_device)
     use_device = (dev is not None and dev.type == "cuda"
                   and n * dim >= DEVICE_DATA_MIN_ELEMENTS)

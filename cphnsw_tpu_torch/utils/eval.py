@@ -252,17 +252,20 @@ def run_benchmark(
     engine is forced) and returns its contents.  Synthetic stores of at
     least DEVICE_DATA_MIN_ELEMENTS on a CUDA device are drawn on the device
     from JAX's Threefry stream, get their ground truth there and build
-    from a device tensor (``make_synthetic``)."""
+    from a device tensor; on the CPU they take the host recipe
+    (``make_synthetic``)."""
     from cphnsw_tpu_torch.api.scan_index import resolve_device
     from cphnsw_tpu_torch.utils.datasets import load_dataset, synthetic_shape
 
     dev = resolve_device(device)
-    on_device = False
-    if dataset_name.startswith("synthetic") and dev.type == "cuda":
+    large = False
+    if dataset_name.startswith("synthetic"):
         n, dim, _ = synthetic_shape(dataset_name)
-        on_device = n * dim >= DEVICE_DATA_MIN_ELEMENTS
+        large = n * dim >= DEVICE_DATA_MIN_ELEMENTS
+    # a large synthetic store is drawn on the benchmark's device: the card,
+    # or the host recipe when the benchmark runs on the CPU
     ds = load_dataset(dataset_name, base_dir=base_dir,
-                      gt_device=dev if on_device else None)
+                      gt_device=dev if large else None)
     truth = ds["groundtruth"].astype(np.int64)
     metric = ds.get("metric", "l2")
 

@@ -43,14 +43,17 @@ def _kernel_operands(device, rows, p, q, seed, extreme=False):
 # (rows, p, q, bins): K widths 16 .. 2048 (zero K tails in the 128-byte
 # TMA boxes, the resident and the streamed query tile), Q off the 128-query
 # tile, groups 1 .. 1024, the main path's and one sharded-scan shard's
-# shapes, and small batches whose group axis is split over the card
+# shapes, small batches whose group axis is split over the card, and the
+# launch of the 100k x 1536d inner-product workload (1537 columns padded
+# to P 2048: the streamed query tile over 98 groups)
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,p,q,bins", [
     (4096, 16, 100, 512), (8192, 40, 64, 1024), (100_352, 128, 2048, 1024),
     (512, 16, 100, 512), (38 * 512, 128, 300, 512),
     (1_000_448, 128, 2048, 1024), (1_000_448, 128, 100, 1024),
     (1024 * 512, 16, 200, 512), (40 * 512, 1024, 200, 512),
-    (20 * 512, 2048, 130, 512), (252_928, 128, 2048, 6656)])
+    (20 * 512, 2048, 130, 512), (252_928, 128, 2048, 6656),
+    (100_352, 2048, 1024, 1024)])
 def test_kernel_equals_plain_version(cuda_device, rows, p, q, bins):
     ops = _kernel_operands(cuda_device, rows, p, q, rows + p)
     before = scan_keys.launches
@@ -144,6 +147,29 @@ def test_cuda_index_matches_cpu_index(cuda_device):
     ids_g, d_g = gpu.search_batch(queries, k=10)
     assert scan_keys.launches > before
     ids_c, d_c = cpu.search_batch(queries, k=10)
+    # selection is approximate: >= 0.99 of the returned ids agree
+    assert (ids_g[:, :, None] == ids_c[:, None, :]).any(-1).mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,metric", [(1536, "ip"), (960, "l2")])
+def test_cuda_wide_index_matches_cpu_index(cuda_device, dim, metric):
+    """The widths of the JAX package's 1536d inner-product and 960d
+    workloads (P 2048 and 1024) at k = 100, card against CPU."""
+    rng = np.random.default_rng(1)
+    centers = rng.standard_normal((16, dim)).astype(np.float32) * 3.0
+    base = centers[rng.integers(0, 16, 3000)] + rng.standard_normal(
+        (3000, dim)).astype(np.float32)
+    queries = base[:64] + 0.05
+    cpu = ScanIndex(dim, bits=1, metric=metric, device="cpu").build(
+        base).finalize()
+    before = scan_keys.launches
+    gpu = ScanIndex(dim, bits=1, metric=metric, device=cuda_device).build(
+        base).finalize()
+    ids_g, d_g = gpu.search_batch(queries, k=100)
+    assert scan_keys.launches > before
+    ids_c, d_c = cpu.search_batch(queries, k=100)
+    assert ids_g.shape == (64, 100) and np.isfinite(d_g).all()
     # selection is approximate: >= 0.99 of the returned ids agree
     assert (ids_g[:, :, None] == ids_c[:, None, :]).any(-1).mean() >= 0.99
 

@@ -127,7 +127,8 @@ def test_device_recipe_has_its_own_key(tmp_path, monkeypatch):
     port's generator: a ``-dev`` file of the JAX package is never read,
     and the port's own file also serves the store factory."""
     monkeypatch.setattr(tdata, "DEVICE_DATA_MIN_ELEMENTS", 1)
-    host = tdata.make_synthetic(NAME, cache_dir=None, **KW)
+    host = tdata.make_synthetic(NAME, cache_dir=None, gt_device="cpu",
+                                **KW)
     # what the JAX package would have cached from its accelerator
     np.savez(tmp_path / f"{KEY}-dev.npz", base=host["base"] + 7.0,
              queries=host["queries"], groundtruth=host["groundtruth"],

@@ -24,7 +24,7 @@ N, R, BITS, WORDS = 300, 8, 2, 1
 @pytest.mark.parametrize("num_levels", [4, 7])
 def test_search_params_default_matches_jax(num_levels):
     want = jbeam.SearchParams.default(num_levels)
-    got = tbeam.SearchParams.default(num_levels)
+    got = tbeam.SearchParams.default(num_levels, device="cpu")
     assert got._fields == want._fields
     for name in got._fields:
         if name == "slack_levels":
@@ -36,7 +36,8 @@ def test_search_params_default_matches_jax(num_levels):
     assert got.slack_levels.device.type == "cpu"
     np.testing.assert_array_equal(got.slack_levels.numpy(),
                                   np.asarray(want.slack_levels))
-    assert tbeam.SearchParams.default().slack_levels.shape == (4,)
+    assert tbeam.SearchParams.default(
+        device="cpu").slack_levels.shape == (4,)
     assert tbeam.SearchParams.default(
         device="meta").slack_levels.device.type == "meta"
 
