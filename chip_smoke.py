@@ -46,7 +46,9 @@ Phases, in order; any failed check exits non-zero:
      search_batch(k=10) on the first 1024 queries, recall@10 >= 0.90 beside
      the seconds of NNDescent, the share of them its Threefry draws take
      on the card, and the build's peak device memory, the beam steps and
-     ms per step (CUDA events); (b) NNDescent's working graph of a 20k x
+     ms per step (CUDA events), the memory the beam's kept graphs hold
+     after the build (none added) and after the searches (within
+     beam.KEPT_BYTES_PER_DEVICE); (b) NNDescent's working graph of a 20k x
      32d store (R = 16) built on the card and on the CPU from the same
      Threefry keys: rows with equal edge sets >= 98% after the build and
      >= 99.9% after one round from the same init (a seed-4 build for
@@ -59,6 +61,12 @@ Phases, in order; any failed check exits non-zero:
      width warmed once and timed as the median of 5;
   8. torch.profiler over one warm 1M graph batch: device-busy share, the
      five kernels with the most device time, launches per beam step;
+     (b) the beam replayed from its captured CUDA graph against the same
+     step function launched eagerly: ids, distances, result steps and
+     step count equal, also in the calls that replay a kept graph; the
+     capture ms, ms per replay, the p50 batch of three routes (eager, a
+     capture per call, the kept graph) and the memory the kept graph
+     holds;
   9. the sharded scan: ShardedScanIndex(128, bits=1) on the same 1M x 128d
      data over a (1, 4) mesh of cuda:i % device_count (4 shards of
      250,112 rows on one card), shard-native build (seconds per stage),
@@ -512,6 +520,7 @@ def graph_drive(name, data, bits, card):
     """Graph engine: build + finalize + warm + timed searches on the first
     GRAPH_QUERIES queries; returns (index, queries, ids)."""
     idx = CPIndex(DIM, bits=bits, engine="graph", device="cuda")
+    kept_before = beam.kept_bytes()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with NNDescentClock() as nnd:
@@ -521,6 +530,10 @@ def graph_drive(name, data, bits, card):
     build_s = time.perf_counter() - t0
     nnd.peak_gib = peak_gib()
     g = idx._index
+    kept_build = beam.kept_bytes() - kept_before
+    log(f"  {name}: after the build the beam's kept graphs grew by "
+        f"{kept_build} B; allocated / reserved "
+        f"{' / '.join(f'{x:.4f}' for x in resident_gib())} GiB [{card}]")
     log(f"  {name}: build+finalize {build_s:.2f} s, stages "
         f"{json.dumps(g.build_stages)}, step budget {g._step_budget}, "
         f"graph stats {g._stats.to_dict()} [{card}]")
@@ -532,6 +545,14 @@ def graph_drive(name, data, bits, card):
         ids, dists = idx.search_batch(queries, k=K)  # ends on a host copy
         lat.append(time.perf_counter() - t0)
     p50 = statistics.median(lat)
+    log(f"  {name}: after the searches the beam's kept graphs hold "
+        f"{beam.kept_bytes() / 2**30:.4f} GiB (at most "
+        f"{beam.KEPT_BYTES_PER_DEVICE / 2**30:g}); allocated / reserved "
+        f"{' / '.join(f'{x:.4f}' for x in resident_gib())} GiB [{card}]")
+    if kept_build > 0 or beam.kept_bytes() > beam.KEPT_BYTES_PER_DEVICE:
+        fail(f"{name}: the build kept {kept_build} B of beam graphs (the "
+             f"step budgets keep none) or the searches left "
+             f"{beam.kept_bytes()} B, above the budget")
     recall = recall_at_k(ids, data["groundtruth"][:GRAPH_QUERIES], K)
     log(f"  {name}: recall@{K}={recall:.4f} QPS={len(queries) / p50:.1f} "
         f"p50 batch latency {p50 * 1e3:.2f} ms (Q={len(queries)}, "
@@ -607,6 +628,126 @@ def profile_graph_batch(g, queries, p50, card):
         log(f"  {us / 1e3:9.3f} ms {count:6d} launches  {name[:110]}")
     if not kernels:
         log("  the profiler recorded no device kernels")
+
+
+def resident_gib():
+    """(allocated, reserved) device memory in GiB, after a synchronize and
+    torch.cuda.empty_cache()."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return (torch.cuda.memory_allocated() / 2**30,
+            torch.cuda.memory_reserved() / 2**30)
+
+
+def beam_graph_drive(g, queries, card):
+    """Phase 8b: the 1M graph index's beam replayed from captured graphs
+    against the same step function launched eagerly, op by op
+    (beam._graphed swapped for the identity, no kept graph): ids,
+    distances, result steps, last improving steps and step count must be
+    equal in a debug_state call, which captures its own graph and keeps
+    none, and ids and distances in every timed call.  TIMED_RUNS rounds of
+    three routes in turns: eager; a capture per call (beam.drop_replays()
+    first); the graph that call kept, replayed.  Prints each capture's
+    host ms (record + instantiate, after a synchronize), the ms per
+    replay (CUDA events), the p50 search_batch of each route, and the
+    memory held by the kept graph (beam.kept_bytes) and on the device
+    with and without it."""
+    real = beam._graphed
+    capture_ms, replays = [], []
+
+    def timed(fn, stream):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay = real(fn, stream)
+        capture_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def run():
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            replay()
+            ev[1].record()
+            replays.append(ev)
+
+        return run
+
+    def on(route, search):
+        if route != "kept":
+            beam.drop_replays()
+        beam._graphed = (lambda fn, stream: fn) if route == "eager" else timed
+        try:
+            return search()
+        finally:
+            beam._graphed = real
+            if route == "eager":
+                beam.drop_replays()
+
+    q_dev = torch.from_numpy(queries).cuda()
+
+    def debug():
+        return g._beam(q_dev, g._entry_candidates, K, g._max_steps(K),
+                       debug_state=True)
+
+    ids_g, d_g, s_g = on("per_call", debug)
+    debug_captures, debug_kept = len(capture_ms), beam.kept_bytes()
+    ids_e, d_e, s_e = on("eager", debug)
+    equal = (torch.equal(ids_g, ids_e) and torch.equal(d_g, d_e)
+             and torch.equal(s_g.res_step, s_e.res_step)
+             and torch.equal(s_g.last_improve, s_e.last_improve)
+             and s_g.steps == s_e.steps)
+    index_gib = resident_gib()
+    routes = ("eager", "per_call", "kept")
+    lat = {route: [] for route in routes}
+    captures = {route: 0 for route in routes}
+    last = {}
+    for _ in range(TIMED_RUNS):
+        for route in routes:
+            n0 = len(capture_ms)
+            t0 = time.perf_counter()
+            last[route] = on(route, lambda: g.search_batch(queries, k=K))
+            lat[route].append(time.perf_counter() - t0)
+            captures[route] += len(capture_ms) - n0
+    kept_gib = beam.kept_bytes() / 2**30
+    with_kept_gib = resident_gib()
+    torch.cuda.synchronize()
+    replay_ms = [a.elapsed_time(b) for a, b in replays]
+    equal_timed = all(np.array_equal(x, y) for route in ("per_call", "kept")
+                      for x, y in zip(last[route], last["eager"]))
+    p50 = {route: statistics.median(v) * 1e3 for route, v in lat.items()}
+    res = dict(equal=equal, equal_timed=equal_timed, steps=s_g.steps,
+               captures=captures, capture_ms=capture_ms,
+               replays=len(replay_ms),
+               replay_ms_median=statistics.median(replay_ms)
+               if replay_ms else None,
+               p50_ms=p50, batches_ms={route: [x * 1e3 for x in v]
+                                       for route, v in lat.items()},
+               kept_gib=kept_gib, allocated_reserved_gib_without_kept=
+               index_gib, allocated_reserved_gib_with_kept=with_kept_gib)
+    log(f"[8b] graphed beam against eager on the 1M graph index "
+        f"(Q={len(queries)}, {s_g.steps} steps): ids, distances, res_step, "
+        f"last_improve and steps equal in a capturing debug_state call: "
+        f"{equal}, ids and distances in the timed calls: {equal_timed}; "
+        f"captures {', '.join(f'{x:.2f}' for x in capture_ms)} ms; "
+        f"{len(replay_ms)} replays of {beam.DONE_CHECK_EVERY} steps at "
+        f"{res['replay_ms_median']} ms median; search_batch p50 "
+        + ", ".join(f"{route} {p50[route]:.2f} ms" for route in routes)
+        + f" ({TIMED_RUNS} rounds in turns; captures per route "
+        f"{captures}); kept graph {kept_gib:.4f} GiB; allocated / reserved "
+        f"{index_gib[0]:.4f} / {index_gib[1]:.4f} GiB without it, "
+        f"{with_kept_gib[0]:.4f} / {with_kept_gib[1]:.4f} GiB with it "
+        f"[{card}]")
+    if not (equal and equal_timed):
+        fail("the graphed beam differs from the eager step function")
+    if (debug_captures != 1 or debug_kept
+            or captures != dict(eager=0, per_call=TIMED_RUNS, kept=0)
+            or not replay_ms):
+        fail(f"the 1M graph beam captured {debug_captures} graph(s) in its "
+             f"debug_state call and kept {debug_kept} B, then {captures} "
+             f"(one per per_call search, none to replay a kept graph)")
+    if not 0 < kept_gib <= beam.KEPT_BYTES_PER_DEVICE / 2**30:
+        fail(f"the kept graph holds {kept_gib} GiB, outside (0, "
+             f"{beam.KEPT_BYTES_PER_DEVICE / 2**30}]")
+    return res
 
 
 def timed_searches(search, queries, runs):
@@ -777,12 +918,16 @@ def sharded_graph_drive(name, data, bits, mesh, card):
     """Build + one warm and SHARDED_GRAPH_RUNS timed searches of the first
     GRAPH_QUERIES queries; returns (index, queries, ids)."""
     idx = sharded.ShardedIndex(DIM, bits=bits, r=32)
+    kept_before = beam.kept_bytes()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with NNDescentClock() as nnd:
         idx.build(data["base"], mesh)
     build_s = time.perf_counter() - t0
     nnd.peak_gib = peak_gib()
+    kept_build = beam.kept_bytes() - kept_before
+    log(f"  {name}: after the build the beam's kept graphs grew by "
+        f"{kept_build} B [{card}]")
     p = idx._params
     log(f"  {name}: build {build_s:.2f} s, stages "
         f"{json.dumps(idx.build_stages)}, {idx._store.rows} rows per "
@@ -798,6 +943,14 @@ def sharded_graph_drive(name, data, bits, mesh, card):
     ids, dists, lat = timed_searches(lambda q: idx.search_batch(q, k=K),
                                      queries, SHARDED_GRAPH_RUNS)
     p50 = statistics.median(lat)
+    log(f"  {name}: after the searches the beam's kept graphs hold "
+        f"{beam.kept_bytes() / 2**30:.4f} GiB (at most "
+        f"{beam.KEPT_BYTES_PER_DEVICE / 2**30:g}); allocated / reserved "
+        f"{' / '.join(f'{x:.4f}' for x in resident_gib())} GiB [{card}]")
+    if kept_build > 0 or beam.kept_bytes() > beam.KEPT_BYTES_PER_DEVICE:
+        fail(f"{name}: the build kept {kept_build} B of beam graphs (the "
+             f"step budgets keep none) or the searches left "
+             f"{beam.kept_bytes()} B, above the budget")
     recall = recall_at_k(ids, data["groundtruth"][:GRAPH_QUERIES], K)
     log(f"  {name}: recall@{K}={recall:.4f} QPS={len(queries) / p50:.1f} "
         f"p50 batch latency {p50 * 1e3:.2f} ms (Q={len(queries)}, batches "
@@ -1731,8 +1884,9 @@ def main():
     phases["rerank_width"] = rerank_width_drive(sidx._index, sq, card)
     del sidx, fresh
 
-    # 8. profile of the 1M graph batch
+    # 8. profile of the 1M graph batch; 8b. its graphed beam against eager
     profile_graph_batch(gidx._index, gq, gp50, card)
+    phases["beam_graph"] = beam_graph_drive(gidx._index, gq, card)
     del gidx
     torch.cuda.empty_cache()
 
@@ -1822,7 +1976,7 @@ def main():
         sharded_scan_launches_per_batch=s_per_batch,
     )]
     phases["fma_f32"] = fma
-    log(f"phases 2 (fma_f32), 5a-5f, 6b, 7f, 9c, 10b: "
+    log(f"phases 2 (fma_f32), 5a-5f, 6b, 7f, 8b, 9c, 10b: "
         f"{json.dumps(phases)}")
     log(f"phase 12: {json.dumps(workloads)}")
     log(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -20,10 +20,19 @@ results and beam.  Per query, the semantics are the JAX package's:
 Where the port differs from the JAX package, and why results stay the
 same up to which duplicate expansions happen (the result heap dedups):
 
-  * ``lax.while_loop`` becomes a Python loop that reads the done flags on
-    the host only every ``DONE_CHECK_EVERY`` steps, capped at max_steps:
-    a step of a finished query is a no-op (every update is masked by
-    ``active``), so the extra steps change nothing but the step counter;
+  * ``lax.while_loop`` becomes a Python loop over chunks of
+    ``DONE_CHECK_EVERY`` steps that reads the done flags on the host once
+    per chunk, capped at max_steps: a step of a finished query is a no-op
+    (every update is masked by ``active``), so the extra steps change
+    nothing but the step counter;
+  * on CUDA, where one device program would run the JAX loop, the port
+    captures one chunk in a CUDA graph and replays it: one launch per
+    chunk in place of ~2,000 small ones, the same kernels in the same
+    order (the remainder past the last whole chunk runs eagerly).  The
+    graph is kept with the buffers it works on for the next call of the
+    same shapes, within a byte budget per device; a call that captures
+    runs its first chunk eagerly.  A kept graph replays the functions it
+    captured: ``drop_replays()`` after patching one;
   * the beam's ``approx_max_k`` is an exact selection; every top-k breaks
     ties by the lower index first, as ``lax.top_k`` does;
   * where two ids of one step hash to one visited slot, the port keeps
@@ -35,6 +44,9 @@ same up to which duplicate expansions happen (the result heap dedups):
 
 from __future__ import annotations
 
+import functools
+import itertools
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -47,7 +59,8 @@ from cphnsw_tpu_torch.ops.estimate import full_fp32
 
 FLOAT_MAX = float(torch.finfo(torch.float32).max)
 EPS_SMALL = 1e-12
-# Steps between host reads of the done flags (one device->host sync each).
+# Steps between host reads of the done flags (one device->host sync each);
+# on CUDA, the steps of one captured graph.
 DONE_CHECK_EVERY = 8
 
 
@@ -91,16 +104,17 @@ class BeamState(NamedTuple):
     ratio_cnt: torch.Tensor   # (Q,) int32
     slack_cnt: torch.Tensor   # (Q,) int32
     done: torch.Tensor        # (Q,) bool
-    steps: int                # loop steps run
+    steps: int                # loop steps run (during the loop, a ()
+                              # int32 counter on the device)
     last_improve: torch.Tensor  # (Q,) int32: step of last result change
     res_step: torch.Tensor    # (Q, K) int32: step each result was pushed
 
 
-def _merge_results(res_ids, res_d, res_step, cand_ids, cand_d, step: int,
-                   k: int):
+def _merge_results(res_ids, res_d, res_step, cand_ids, cand_d,
+                   step: torch.Tensor, k: int):
     ids = torch.cat([res_ids, cand_ids], dim=1)
     d = torch.cat([res_d, cand_d], dim=1)
-    steps = torch.cat([res_step, torch.full_like(cand_ids, step)], dim=1)
+    steps = torch.cat([res_step, step.expand(cand_ids.shape)], dim=1)
     top_d, sel = top_k_smallest(d, k)
     return ids.gather(1, sel), top_d, steps.gather(1, sel)
 
@@ -144,6 +158,28 @@ def _seed_beam(raw, norm_sq, entry_candidates, qpad, qnorm, beam_cap: int,
     return seeds.to(torch.int32), seed_d
 
 
+class _Consts(NamedTuple):
+    """What the steps read and never write: the batch's tensors, which a
+    captured graph reads by address, and the scalars its ops bake in."""
+
+    raw: torch.Tensor
+    norm_sq: torch.Tensor
+    fused: torch.Tensor
+    qpad: torch.Tensor
+    qnorm: torch.Tensor
+    q_u: torch.Tensor
+    coeff: tuple                # (Q, 1) coeff_a, coeff_b, coeff_c
+    earlier: torch.Tensor       # (er, er) bool: row index > column index
+    params: SearchParams
+    bits: int
+    k: int
+    r: int
+    words: int
+    expand_width: int
+    rw: int                     # candidates exact-reranked per step
+    h_size: int                 # hash-visited slots; 0: dense visited
+
+
 def search_batch(raw, norm_sq, neighbors: NeighborStore, entry_candidates,
                  signs, queries, params: SearchParams, bits: int, k: int,
                  beam_cap: int = 128, max_steps: int = 512,
@@ -164,33 +200,28 @@ def search_batch(raw, norm_sq, neighbors: NeighborStore, entry_candidates,
     q = queries.shape[0]
     r = neighbors.r
     dev = raw.device
-    k_scale = float((1 << bits) - 1)
-    msb_scale = 1.0 if bits < 2 else 3.0
-    num_levels = params.slack_levels.shape[0]
     er = expand_width * r
-    words = neighbors.words
 
-    qpad = hadamard.pad_to(queries.to(dev, torch.float32), p)
+    # a copy, never the caller's tensor: a kept graph reads it by address
+    # and a later call writes its own queries there
+    qpad = hadamard.pad_to(queries.to(dev, torch.float32), p).clone()
     qc = quantize.encode_queries(qpad, signs)
     qnorm = (qpad * qpad).sum(dim=-1)
-    coeff = [c[:, None] for c in (qc.coeff_a, qc.coeff_b, qc.coeff_c)]
 
     seeds, seed_d = _seed_beam(raw, norm_sq, entry_candidates, qpad, qnorm,
                                beam_cap, k, n_seeds)
-    rw = min(rerank_width, er) if rerank_width > 0 else er
     s = seeds.shape[1]
     beam_ids = torch.full((q, beam_cap), -1, dtype=torch.int32, device=dev)
     beam_ids[:, :s] = seeds
     beam_est = torch.full((q, beam_cap), FLOAT_MAX, device=dev)
     beam_est[:, :s] = seed_d
-    beam_lower = torch.zeros((q, beam_cap), device=dev)
     res_ids = torch.full((q, k), -1, dtype=torch.int32, device=dev)
     res_ids[:, :s] = seeds
     res_d = torch.full((q, k), FLOAT_MAX, device=dev)
     res_d[:, :s] = seed_d
     # empty (-1) seed slots go to the spare visited slot
-    if visited_hash_bits > 0:
-        h_size = 1 << visited_hash_bits
+    h_size = 1 << visited_hash_bits if visited_hash_bits > 0 else 0
+    if h_size:
         visited = torch.full((q, h_size + 1), -1, dtype=torch.int32,
                              device=dev)
         seed_slot = (seeds % h_size).long()
@@ -201,185 +232,403 @@ def search_batch(raw, norm_sq, neighbors: NeighborStore, entry_candidates,
         visited = torch.zeros((q, n + 1), dtype=torch.bool, device=dev)
         visited.scatter_(1, torch.where(seeds >= 0, seeds, n).long(), True)
 
-    gamma_q = torch.full((q,), params.gamma, device=dev)
-    ratio_sum = torch.zeros(q, device=dev)
-    ratio_sq = torch.zeros(q, device=dev)
-    ratio_cnt = torch.zeros(q, dtype=torch.int32, device=dev)
-    slack_cnt = torch.zeros(q, dtype=torch.int32, device=dev)
-    done = torch.zeros(q, dtype=torch.bool, device=dev)
-    last_improve = torch.zeros(q, dtype=torch.int32, device=dev)
-    res_step = torch.zeros((q, k), dtype=torch.int32, device=dev)
-    earlier = (torch.arange(er, device=dev)[:, None]
-               > torch.arange(er, device=dev)[None, :])          # (er, er)
+    buf = BeamState(
+        beam_ids=beam_ids, beam_est=beam_est,
+        beam_lower=torch.zeros((q, beam_cap), device=dev),
+        res_ids=res_ids, res_d=res_d, visited=visited,
+        gamma_q=torch.full((q,), params.gamma, device=dev),
+        ratio_sum=torch.zeros(q, device=dev),
+        ratio_sq=torch.zeros(q, device=dev),
+        ratio_cnt=torch.zeros(q, dtype=torch.int32, device=dev),
+        slack_cnt=torch.zeros(q, dtype=torch.int32, device=dev),
+        done=torch.zeros(q, dtype=torch.bool, device=dev),
+        steps=torch.zeros((), dtype=torch.int32, device=dev),
+        last_improve=torch.zeros(q, dtype=torch.int32, device=dev),
+        res_step=torch.zeros((q, k), dtype=torch.int32, device=dev))
+    consts = _Consts(
+        raw=raw, norm_sq=norm_sq, fused=neighbors.fused, qpad=qpad,
+        qnorm=qnorm, q_u=qc.q_u,
+        coeff=tuple(c[:, None] for c in (qc.coeff_a, qc.coeff_b,
+                                         qc.coeff_c)),
+        earlier=(torch.arange(er, device=dev)[:, None]
+                 > torch.arange(er, device=dev)[None, :]),   # (er, er)
+        params=params, bits=bits, k=k, r=r, words=neighbors.words,
+        expand_width=expand_width,
+        rw=min(rerank_width, er) if rerank_width > 0 else er, h_size=h_size)
 
-    step = 0
-    while step < max_steps:
-        # ---- pop the best E beam entries per query ----
-        pop_est, pop_slots = top_k_smallest(beam_est, expand_width)
-        pop_lower = beam_lower.gather(1, pop_slots)
-        pop_ids = beam_ids.gather(1, pop_slots)
-        pop_valid = pop_est < FLOAT_MAX
+    keep = not debug_state
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            buf, steps = _run_steps(buf, consts, max_steps, neighbors, keep)
+    else:
+        buf, steps = _run_steps(buf, consts, max_steps, neighbors, keep)
 
-        d_k = res_d[:, k - 1]
-        res_full = d_k < FLOAT_MAX
-        terminate = res_full & (pop_est[:, 0] >= gamma_q * d_k)
-        done = done | ~pop_valid[:, 0] | terminate
-        active = ~done
-
-        popped = torch.zeros_like(beam_est, dtype=torch.bool).scatter_(
-            1, pop_slots, pop_valid)
-        beam_est = torch.where(active[:, None] & popped, FLOAT_MAX, beam_est)
-
-        # per-entry lower-bound expansion skip
-        skip = res_full[:, None] & (pop_lower > d_k[:, None])
-        expand_e = active[:, None] & pop_valid & ~skip            # (Q, E)
-        expand = expand_e.any(dim=1)
-        cur_safe = torch.where(expand_e, pop_ids, 0).long()       # (Q, E)
-
-        # exact distance to each popped node = d_qp^2
-        d_qp_sq = estimate.exact_l2_sq(qpad, qnorm, raw[cur_safe],
-                                       norm_sq[cur_safe])         # (Q, E)
-
-        # slack-level escalation
-        dot_slack = params.slack_levels[slack_cnt.clamp_max(num_levels - 1)]
-        slack_cnt = slack_cnt + expand_e.sum(dim=1, dtype=torch.int32)
-
-        # ---- score all E*R candidates per query ----
-        g = neighbors.fused[cur_safe]                            # (Q, E, F)
-        nbr_ids = g[..., :r].reshape(q, er)
-        valid = (nbr_ids >= 0) & expand_e.repeat_interleave(r, dim=1)
-        nbr_safe = torch.where(valid, nbr_ids, 0).long()
-        aux = g[..., r:5 * r].view(torch.float32).reshape(
-            q, expand_width, 4, r).permute(2, 0, 1, 3).reshape(4, q, er)
-        planes = g[..., 5 * r:(5 + bits * words) * r].reshape(
-            q, expand_width, bits, words, r).permute(0, 1, 4, 2, 3)
-        u = pack.unpack_planes(planes, p).reshape(q, er, p)
-        fs = estimate.fastscan_sums(u, qc.q_u)
-        ip_full = estimate.ip_from_fastscan(fs, aux[3], *coeff, k_scale)
-        if bits >= 2:
-            # planes 0-1 as 2*p0 + p1 (pack.unpack_msb) are the top two
-            # bits of u
-            u_msb = u >> (bits - 2)
-            ip_bound = estimate.ip_from_fastscan(
-                estimate.fastscan_sums(u_msb, qc.q_u),
-                pack.weighted_popcount(u_msb), *coeff, msb_scale)
-        else:
-            ip_bound = ip_full
-
-        calib = estimate.CalibParams(
-            affine_a=params.affine_a, affine_b=params.affine_b,
-            ip_qo_floor=params.ip_qo_floor, dot_slack=dot_slack[:, None])
-        est, lower = estimate.distances_with_bounds(
-            ip_full, ip_bound, aux[0], aux[1], aux[2],
-            d_qp_sq.repeat_interleave(r, dim=1), calib)
-
-        # ---- dedup + gates ----
-        if visited_hash_bits > 0:
-            slot = nbr_safe % h_size
-            seen = visited.gather(1, slot) == nbr_safe
-        else:
-            seen = visited.gather(1, nbr_safe)
-        # intra-step dedup: keep the first occurrence of a neighbour that
-        # two popped nodes share
-        dup_prior = ((nbr_ids[:, :, None] == nbr_ids[:, None, :])
-                     & earlier & valid[:, None, :]).any(dim=-1)
-        cand_ok = valid & ~seen & ~dup_prior
-        if visited_hash_bits > 0:
-            mark = _last_writers(slot, cand_ok)
-            visited.scatter_(1, torch.where(mark, slot, h_size),
-                             torch.where(mark, nbr_safe, -1).int())
-        else:
-            visited.scatter_(1, torch.where(cand_ok, nbr_safe, n), True)
-
-        warmup = ~res_full
-        cand_ok = cand_ok & (warmup[:, None] | (lower < d_k[:, None]))
-        rerank = cand_ok & (warmup[:, None] | (est < d_k[:, None]))
-
-        # ---- capped exact rerank: only the rw best estimates fetch raw
-        # vectors; the rest keep their estimates ----
-        if rw == er:
-            rr_slots = None
-            rr_ok, rr_node, est_rr = rerank, nbr_safe, est
-        else:
-            rr_slots = top_k_smallest(torch.where(rerank, est, FLOAT_MAX),
-                                      rw)[1]                      # (Q, rw)
-            rr_ok = rerank.gather(1, rr_slots)
-            rr_node = nbr_safe.gather(1, rr_slots)
-            est_rr = est.gather(1, rr_slots)
-        rr_vecs = raw[rr_node]                                   # (Q, rw, P)
-        exact_rr = estimate.exact_l2_sq(qpad, qnorm, rr_vecs,
-                                        (rr_vecs * rr_vecs).sum(dim=-1))
-
-        # ---- result heap pushes: reranked candidates + popped nodes ----
-        pop_in_res = ((pop_ids[:, :, None] == res_ids[:, None, :])
-                      & (pop_ids >= 0)[:, :, None]).any(dim=-1)
-        rr_in_res = ((rr_node[:, :, None] == res_ids[:, None, :])
-                     & rr_ok[:, :, None]).any(dim=-1)
-        push_ids = torch.cat([rr_node.int(), cur_safe.int()], dim=1)
-        push_d = torch.cat([
-            torch.where(rr_ok & ~rr_in_res, exact_rr, FLOAT_MAX),
-            torch.where(expand_e & ~pop_in_res, d_qp_sq, FLOAT_MAX),
-        ], dim=1)
-        new_ids, new_d, new_step = _merge_results(
-            res_ids, res_d, res_step, push_ids, push_d, step + 1, k)
-        new_d = torch.where(expand[:, None], new_d, res_d)
-        improved = expand & (new_d != res_d).any(dim=1)
-        res_ids = torch.where(expand[:, None], new_ids, res_ids)
-        res_d = new_d
-        res_step = torch.where(expand[:, None], new_step, res_step)
-        last_improve = torch.where(improved & active, step + 1, last_improve)
-
-        # ---- DABS enqueue gate ----
-        d_k_new = res_d[:, k - 1]
-        dabs_thresh = torch.where(d_k_new < FLOAT_MAX, gamma_q * d_k_new,
-                                  FLOAT_MAX)[:, None]
-        # reranked entries carry exact distances as beam priority
-        if rr_slots is None:
-            enq_val = torch.where(rerank, exact_rr, est)
-        else:
-            enq_val = est.scatter(1, rr_slots,
-                                  torch.where(rr_ok, exact_rr, est_rr))
-        enq_lower = torch.where(warmup[:, None], enq_val, lower)
-        enq = cand_ok & (enq_val < dabs_thresh)
-        all_est = torch.cat([beam_est, torch.where(enq, enq_val, FLOAT_MAX)],
-                            dim=1)
-        beam_est_new, slot_b = top_k_smallest(all_est, beam_cap)
-        beam_ids_new = torch.cat([beam_ids, nbr_ids], dim=1).gather(1, slot_b)
-        beam_lower_new = torch.cat([beam_lower, enq_lower], dim=1).gather(
-            1, slot_b)
-        beam_est = torch.where(active[:, None], beam_est_new, beam_est)
-        beam_ids = torch.where(active[:, None], beam_ids_new, beam_ids)
-        beam_lower = torch.where(active[:, None], beam_lower_new, beam_lower)
-
-        # ---- online gamma_q adaptation ----
-        contrib = rr_ok & ~warmup[:, None] & (exact_rr > EPS_SMALL)
-        ratio = torch.where(contrib, est_rr / exact_rr.clamp_min(EPS_SMALL),
-                            0.0)
-        ratio_sum = ratio_sum + torch.where(expand, ratio.sum(dim=1), 0.0)
-        ratio_sq = ratio_sq + torch.where(expand, (ratio * ratio).sum(dim=1),
-                                          0.0)
-        ratio_cnt = ratio_cnt + torch.where(
-            expand, contrib.sum(dim=1, dtype=torch.int32), 0)
-        cnt_f = ratio_cnt.float().clamp_min(1.0)
-        r_mean = ratio_sum / cnt_f
-        r_std = torch.sqrt((ratio_sq / cnt_f - r_mean * r_mean).clamp_min(0.0))
-        gamma_new = torch.clamp(
-            params.gamma * (1.0 + params.gamma_beta * r_std),
-            params.gamma, params.gamma_max)
-        gamma_q = torch.where(expand & (ratio_cnt >= params.gamma_warmup),
-                              gamma_new, gamma_q)
-
-        step += 1
-        if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
-            break
-
-    ids = torch.where(res_d < FLOAT_MAX, res_ids, -1)
+    # copies: on CUDA the buffers are kept for the next call
+    ids = torch.where(buf.res_d < FLOAT_MAX, buf.res_ids, -1)
     if not debug_state:
-        return ids, res_d
-    final = BeamState(
+        return ids, buf.res_d.clone()
+    return ids, buf.res_d.clone(), BeamState(
+        *(t.clone() for t in buf))._replace(steps=steps)
+
+
+class _Replay(NamedTuple):
+    """A captured chunk kept across calls: its replay, the state and input
+    buffers it reads and writes by address, the bytes it holds (those
+    buffers and the graph's memory pool) and when it was last used."""
+
+    run: object
+    buf: BeamState
+    consts: _Consts
+    nbytes: int
+    used: int
+
+
+# Captured chunks kept across calls, per neighbour store (an entry goes
+# with its store): on an H100 a capture per call cost 20% of a 1024-query
+# batch on a 1M-row graph (PERF.md).  The entries of one device hold at
+# most KEPT_BYTES_PER_DEVICE, as much as one Index sub-batch's visited
+# table may take (api/index.py), the least recently used dropped first: a
+# search whose entry alone takes more frees its graph at return.  A
+# debug_state search replays a kept graph but keeps none it captures.
+_REPLAYS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+KEPT_BYTES_PER_DEVICE = 2 << 30
+_USES = itertools.count()
+
+
+def drop_replays():
+    """Free every kept graph.  A kept graph replays the functions it
+    captured: call this after patching one that the beam step calls."""
+    _REPLAYS.clear()
+
+
+def kept_bytes(device=None) -> int:
+    """Bytes held by the kept graphs on `device` (on every device for
+    None): their state and input buffers and their memory pools."""
+    dev = None if device is None else torch.device(device)
+    if dev is not None and dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return sum(e.nbytes for kept in list(_REPLAYS.values())
+               for e in kept.values()
+               if dev is None or e.buf.done.device == dev)
+
+
+def _keep(kept: dict, key, entry: _Replay):
+    """Keep entry in kept (a store's entries in _REPLAYS) as the most
+    recently used, then drop the least recently used entries of its device
+    until they hold at most KEPT_BYTES_PER_DEVICE."""
+    kept[key] = entry._replace(used=next(_USES))
+    dev = entry.buf.done.device
+    mine = sorted(((e.used, key_, d) for d in list(_REPLAYS.values())
+                   for key_, e in d.items() if e.buf.done.device == dev),
+                  key=lambda x: x[0])
+    total = sum(d[key_].nbytes for _, key_, d in mine)
+    for _, key_, d in mine:
+        if total <= KEPT_BYTES_PER_DEVICE:
+            break
+        total -= d.pop(key_).nbytes
+
+
+def _inputs(c: _Consts) -> tuple:
+    """The consts that are the batch's own: a kept graph's copies of them
+    are loaded with each call's."""
+    return c.coeff + (c.qpad, c.qnorm, c.q_u)
+
+
+def _replay_key(buf: BeamState, c: _Consts) -> tuple:
+    """What a captured chunk bakes in: the device, every buffer's shape and
+    type, the index's tensors by address, and the scalars."""
+    p = c.params
+    return (buf.done.device,
+            tuple((t.shape, t.dtype) for t in tuple(buf) + _inputs(c)),
+            tuple((t.data_ptr(), t.shape, t.dtype) for t in (
+                c.raw, c.norm_sq, c.fused, p.slack_levels)),
+            p.affine_a, p.affine_b, p.ip_qo_floor, p.gamma, p.gamma_max,
+            p.gamma_beta, p.gamma_warmup, c.bits, c.k, c.r, c.words,
+            c.expand_width, c.rw, c.h_size, DONE_CHECK_EVERY)
+
+
+def _load(entry: _Replay, buf: BeamState, c: _Consts) -> _Replay:
+    """Copy this call's initial state and query inputs into a kept
+    entry's buffers."""
+    for dst, src in zip(tuple(entry.buf) + _inputs(entry.consts),
+                        tuple(buf) + _inputs(c)):
+        dst.copy_(src)
+    return entry
+
+
+def _run_steps(buf: BeamState, c: _Consts, max_steps: int, store,
+               keep: bool) -> tuple[BeamState, int]:
+    """Advance the state in buf to the end of the search: chunks of
+    DONE_CHECK_EVERY steps, each followed by one host read of the done
+    flags, then the rest of max_steps unread.  Returns (the final state,
+    the steps run).
+
+    On CUDA every chunk replays one captured graph, one launch each.  A
+    graph kept for store and this call's shapes (_REPLAYS) is replayed
+    from the first chunk; a call that finds none runs its first chunk
+    eagerly on a side stream (real work, and the warm-up of that stream's
+    handles), then captures a chunk on it for its later chunks, and keeps
+    the graph with its buffers when `keep` and the byte budget allow."""
+    every = DONE_CHECK_EVERY
+    full, rest = divmod(max_steps, every)
+    side = kept = key = entry = None
+    if buf.done.is_cuda:
+        side = _side_stream(buf.done.device)
+        kept = _REPLAYS.setdefault(store, {})
+        key = _replay_key(buf, c)
+        entry = kept.pop(key, None)
+        if entry is not None:
+            buf, c = _load(entry, buf, c)[1:3]
+
+    def chunk():
+        _advance(buf, c, every)
+
+    run = entry.run if entry is not None else None
+    pool = 0
+    steps = max_steps
+    for i in range(full):
+        if run is not None:
+            run()
+        elif side is not None and i == 0:
+            main = torch.cuda.current_stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                chunk()
+            main.wait_stream(side)
+        elif side is not None:
+            # the graph's private pool is reserved while it is captured
+            before = torch.cuda.memory_reserved(buf.done.device)
+            run = _graphed(chunk, side)
+            pool = torch.cuda.memory_reserved(buf.done.device) - before
+            run()
+        else:
+            chunk()
+        if bool(buf.done.all()):
+            steps = (i + 1) * every
+            break
+    else:
+        if rest:
+            _advance(buf, c, rest)
+    if entry is not None:
+        _keep(kept, key, entry)
+    elif run is not None and keep:
+        _keep(kept, key, _Replay(run, buf, c, max(pool, 0) + sum(
+            t.nbytes for t in tuple(buf) + _inputs(c) + (c.earlier,)), 0))
+    return buf, steps
+
+
+@functools.cache
+def _side_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The stream each call's first chunk runs on and its graph is captured
+    on: one per device for the process.  A new stream from PyTorch's pool
+    on every call would grow the allocator's cache, which reuses a freed
+    block only on the stream that allocated it."""
+    return torch.cuda.Stream(dev)
+
+
+def _graphed(fn, stream):
+    """Capture fn's device work on `stream` into one CUDA graph (nothing
+    runs while it is captured) and return the graph's replay, which
+    launches that work on the current stream.  CUDAGraph's own
+    capture_begin / capture_end, not the torch.cuda.graph context, which
+    on entry synchronizes and empties the allocator's cache."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    return graph.replay
+
+
+def _advance(buf: BeamState, c: _Consts, steps: int):
+    """Run `steps` steps from the state in buf and write the result back
+    into buf (visited is updated in place by every step)."""
+    s = buf
+    for _ in range(steps):
+        s = _step(s, c)
+    for new, old in zip(s, buf):
+        if new is not old:
+            old.copy_(new)
+
+
+def _step(s: BeamState, c: _Consts) -> BeamState:
+    """One beam step for the whole batch.  Fixed shapes and no value read
+    on the host, so a chunk of steps can be captured in a CUDA graph."""
+    q = s.beam_est.shape[0]
+    n, p = c.raw.shape
+    r, k, bits, params = c.r, c.k, c.bits, c.params
+    expand_width = c.expand_width
+    er = expand_width * r
+    h_size = c.h_size
+    num_levels = params.slack_levels.shape[0]
+    k_scale = float((1 << bits) - 1)
+    msb_scale = 1.0 if bits < 2 else 3.0
+    beam_est, beam_ids, beam_lower = s.beam_est, s.beam_ids, s.beam_lower
+    res_ids, res_d, res_step = s.res_ids, s.res_d, s.res_step
+    gamma_q, visited = s.gamma_q, s.visited
+    next_step = s.steps + 1
+
+    # ---- pop the best E beam entries per query ----
+    pop_est, pop_slots = top_k_smallest(beam_est, expand_width)
+    pop_lower = beam_lower.gather(1, pop_slots)
+    pop_ids = beam_ids.gather(1, pop_slots)
+    pop_valid = pop_est < FLOAT_MAX
+
+    d_k = res_d[:, k - 1]
+    res_full = d_k < FLOAT_MAX
+    terminate = res_full & (pop_est[:, 0] >= gamma_q * d_k)
+    done = s.done | ~pop_valid[:, 0] | terminate
+    active = ~done
+
+    popped = torch.zeros_like(beam_est, dtype=torch.bool).scatter_(
+        1, pop_slots, pop_valid)
+    beam_est = torch.where(active[:, None] & popped, FLOAT_MAX, beam_est)
+
+    # per-entry lower-bound expansion skip
+    skip = res_full[:, None] & (pop_lower > d_k[:, None])
+    expand_e = active[:, None] & pop_valid & ~skip            # (Q, E)
+    expand = expand_e.any(dim=1)
+    cur_safe = torch.where(expand_e, pop_ids, 0).long()       # (Q, E)
+
+    # exact distance to each popped node = d_qp^2
+    d_qp_sq = estimate.exact_l2_sq(c.qpad, c.qnorm, c.raw[cur_safe],
+                                   c.norm_sq[cur_safe])       # (Q, E)
+
+    # slack-level escalation
+    dot_slack = params.slack_levels[s.slack_cnt.clamp_max(num_levels - 1)]
+    slack_cnt = s.slack_cnt + expand_e.sum(dim=1, dtype=torch.int32)
+
+    # ---- score all E*R candidates per query ----
+    g = c.fused[cur_safe]                                    # (Q, E, F)
+    nbr_ids = g[..., :r].reshape(q, er)
+    valid = (nbr_ids >= 0) & expand_e.repeat_interleave(r, dim=1)
+    nbr_safe = torch.where(valid, nbr_ids, 0).long()
+    aux = g[..., r:5 * r].view(torch.float32).reshape(
+        q, expand_width, 4, r).permute(2, 0, 1, 3).reshape(4, q, er)
+    planes = g[..., 5 * r:(5 + bits * c.words) * r].reshape(
+        q, expand_width, bits, c.words, r).permute(0, 1, 4, 2, 3)
+    u = pack.unpack_planes(planes, p).reshape(q, er, p)
+    fs = estimate.fastscan_sums(u, c.q_u)
+    ip_full = estimate.ip_from_fastscan(fs, aux[3], *c.coeff, k_scale)
+    if bits >= 2:
+        # planes 0-1 as 2*p0 + p1 (pack.unpack_msb) are the top two bits
+        # of u
+        u_msb = u >> (bits - 2)
+        ip_bound = estimate.ip_from_fastscan(
+            estimate.fastscan_sums(u_msb, c.q_u),
+            pack.weighted_popcount(u_msb), *c.coeff, msb_scale)
+    else:
+        ip_bound = ip_full
+
+    calib = estimate.CalibParams(
+        affine_a=params.affine_a, affine_b=params.affine_b,
+        ip_qo_floor=params.ip_qo_floor, dot_slack=dot_slack[:, None])
+    est, lower = estimate.distances_with_bounds(
+        ip_full, ip_bound, aux[0], aux[1], aux[2],
+        d_qp_sq.repeat_interleave(r, dim=1), calib)
+
+    # ---- dedup + gates ----
+    if h_size:
+        slot = nbr_safe % h_size
+        seen = visited.gather(1, slot) == nbr_safe
+    else:
+        seen = visited.gather(1, nbr_safe)
+    # intra-step dedup: keep the first occurrence of a neighbour that two
+    # popped nodes share
+    dup_prior = ((nbr_ids[:, :, None] == nbr_ids[:, None, :])
+                 & c.earlier & valid[:, None, :]).any(dim=-1)
+    cand_ok = valid & ~seen & ~dup_prior
+    if h_size:
+        mark = _last_writers(slot, cand_ok)
+        visited.scatter_(1, torch.where(mark, slot, h_size),
+                         torch.where(mark, nbr_safe, -1).int())
+    else:
+        visited.scatter_(1, torch.where(cand_ok, nbr_safe, n), True)
+
+    warmup = ~res_full
+    cand_ok = cand_ok & (warmup[:, None] | (lower < d_k[:, None]))
+    rerank = cand_ok & (warmup[:, None] | (est < d_k[:, None]))
+
+    # ---- capped exact rerank: only the rw best estimates fetch raw
+    # vectors; the rest keep their estimates ----
+    if c.rw == er:
+        rr_slots = None
+        rr_ok, rr_node, est_rr = rerank, nbr_safe, est
+    else:
+        rr_slots = top_k_smallest(torch.where(rerank, est, FLOAT_MAX),
+                                  c.rw)[1]                     # (Q, rw)
+        rr_ok = rerank.gather(1, rr_slots)
+        rr_node = nbr_safe.gather(1, rr_slots)
+        est_rr = est.gather(1, rr_slots)
+    rr_vecs = c.raw[rr_node]                                 # (Q, rw, P)
+    exact_rr = estimate.exact_l2_sq(c.qpad, c.qnorm, rr_vecs,
+                                    (rr_vecs * rr_vecs).sum(dim=-1))
+
+    # ---- result heap pushes: reranked candidates + popped nodes ----
+    pop_in_res = ((pop_ids[:, :, None] == res_ids[:, None, :])
+                  & (pop_ids >= 0)[:, :, None]).any(dim=-1)
+    rr_in_res = ((rr_node[:, :, None] == res_ids[:, None, :])
+                 & rr_ok[:, :, None]).any(dim=-1)
+    push_ids = torch.cat([rr_node.int(), cur_safe.int()], dim=1)
+    push_d = torch.cat([
+        torch.where(rr_ok & ~rr_in_res, exact_rr, FLOAT_MAX),
+        torch.where(expand_e & ~pop_in_res, d_qp_sq, FLOAT_MAX),
+    ], dim=1)
+    new_ids, new_d, new_step = _merge_results(
+        res_ids, res_d, res_step, push_ids, push_d, next_step, k)
+    new_d = torch.where(expand[:, None], new_d, res_d)
+    improved = expand & (new_d != res_d).any(dim=1)
+    res_ids = torch.where(expand[:, None], new_ids, res_ids)
+    res_d = new_d
+    res_step = torch.where(expand[:, None], new_step, res_step)
+    last_improve = torch.where(improved & active, next_step, s.last_improve)
+
+    # ---- DABS enqueue gate ----
+    d_k_new = res_d[:, k - 1]
+    dabs_thresh = torch.where(d_k_new < FLOAT_MAX, gamma_q * d_k_new,
+                              FLOAT_MAX)[:, None]
+    # reranked entries carry exact distances as beam priority
+    if rr_slots is None:
+        enq_val = torch.where(rerank, exact_rr, est)
+    else:
+        enq_val = est.scatter(1, rr_slots,
+                              torch.where(rr_ok, exact_rr, est_rr))
+    enq_lower = torch.where(warmup[:, None], enq_val, lower)
+    enq = cand_ok & (enq_val < dabs_thresh)
+    all_est = torch.cat([beam_est, torch.where(enq, enq_val, FLOAT_MAX)],
+                        dim=1)
+    beam_cap = beam_est.shape[1]
+    beam_est_new, slot_b = top_k_smallest(all_est, beam_cap)
+    beam_ids_new = torch.cat([beam_ids, nbr_ids], dim=1).gather(1, slot_b)
+    beam_lower_new = torch.cat([beam_lower, enq_lower], dim=1).gather(
+        1, slot_b)
+    beam_est = torch.where(active[:, None], beam_est_new, beam_est)
+    beam_ids = torch.where(active[:, None], beam_ids_new, beam_ids)
+    beam_lower = torch.where(active[:, None], beam_lower_new, beam_lower)
+
+    # ---- online gamma_q adaptation ----
+    contrib = rr_ok & ~warmup[:, None] & (exact_rr > EPS_SMALL)
+    ratio = torch.where(contrib, est_rr / exact_rr.clamp_min(EPS_SMALL),
+                        0.0)
+    ratio_sum = s.ratio_sum + torch.where(expand, ratio.sum(dim=1), 0.0)
+    ratio_sq = s.ratio_sq + torch.where(expand, (ratio * ratio).sum(dim=1),
+                                        0.0)
+    ratio_cnt = s.ratio_cnt + torch.where(
+        expand, contrib.sum(dim=1, dtype=torch.int32), 0)
+    cnt_f = ratio_cnt.float().clamp_min(1.0)
+    r_mean = ratio_sum / cnt_f
+    r_std = torch.sqrt((ratio_sq / cnt_f - r_mean * r_mean).clamp_min(0.0))
+    gamma_new = torch.clamp(
+        params.gamma * (1.0 + params.gamma_beta * r_std),
+        params.gamma, params.gamma_max)
+    gamma_q = torch.where(expand & (ratio_cnt >= params.gamma_warmup),
+                          gamma_new, gamma_q)
+
+    return BeamState(
         beam_ids=beam_ids, beam_est=beam_est, beam_lower=beam_lower,
         res_ids=res_ids, res_d=res_d, visited=visited, gamma_q=gamma_q,
         ratio_sum=ratio_sum, ratio_sq=ratio_sq, ratio_cnt=ratio_cnt,
-        slack_cnt=slack_cnt, done=done, steps=step,
+        slack_cnt=slack_cnt, done=done, steps=next_step,
         last_improve=last_improve, res_step=res_step)
-    return ids, res_d, final

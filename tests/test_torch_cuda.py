@@ -432,3 +432,248 @@ def test_bruteforce_cuda_matches_cpu(cuda_device):
     ids = [bruteforce.BruteForceIndex(48, bits=1, device=dev).build(
         base).search_batch(queries, k=10)[0] for dev in ("cpu", cuda_device)]
     assert (ids[0][:, :, None] == ids[1][:, None, :]).any(-1).mean() >= 0.99
+
+
+def _both_routes(monkeypatch, run):
+    """(run() through the beam's captured graphs, run() with every chunk
+    launched eagerly op by op, the streams the first captured on); no
+    kept graph before, between or after."""
+    from cphnsw_tpu_torch.search import beam
+
+    real = beam._graphed
+    captured = []
+
+    def counting(fn, stream):
+        captured.append(stream)
+        return real(fn, stream)
+
+    beam.drop_replays()
+    monkeypatch.setattr(beam, "_graphed", counting)
+    graphed = run()
+    beam.drop_replays()
+    monkeypatch.setattr(beam, "_graphed", lambda fn, stream: fn)
+    eager = run()
+    beam.drop_replays()
+    monkeypatch.setattr(beam, "_graphed", real)
+    return graphed, eager, captured
+
+
+def _assert_same_search(a, b):
+    """Two beam results (ids, dists[, BeamState]) equal bit for bit."""
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    if len(a) > 2:
+        assert a[2].steps == b[2].steps
+        for name in ("res_step", "last_improve", "visited", "beam_est"):
+            assert torch.equal(getattr(a[2], name), getattr(b[2], name)), name
+
+
+@pytest.mark.cuda
+def test_graphed_beam_equals_eager(cuda_device, monkeypatch):
+    """The beam replayed from its captured graph against the same step
+    function launched op by op, on the card: Index.search_batch, the step
+    budget's k = 100 run (debug_state), the hash-visited table with
+    expand_width 4 and rerank_width 8."""
+    from cphnsw_tpu_torch.search import beam
+
+    rng = np.random.default_rng(11)
+    centers = rng.standard_normal((32, 32)).astype(np.float32) * 3.0
+    base = centers[rng.integers(0, 32, 20_000)] + rng.standard_normal(
+        (20_000, 32)).astype(np.float32)
+    queries = base[rng.choice(20_000, 200, replace=False)] + 0.05
+    idx = Index(32, bits=1, device=cuda_device).build(base).finalize()
+    g, e, captured = _both_routes(
+        monkeypatch, lambda: idx.search_batch(queries, k=10))
+    assert {s.device for s in captured} == {idx._raw.device}
+    np.testing.assert_array_equal(g[0], e[0])
+    np.testing.assert_array_equal(g[1], e[1])
+
+    q_dev = torch.from_numpy(queries).to(cuda_device)
+
+    def budget_run():
+        idx._derive_step_budget()
+        return idx._step_budget, idx._beam(q_dev, idx._entry_candidates,
+                                           100, 512, debug_state=True)
+
+    (bg, g), (be, e), captured = _both_routes(monkeypatch, budget_run)
+    assert captured and bg == be
+    _assert_same_search(g, e)
+    assert g[2].steps > 2 * beam.DONE_CHECK_EVERY
+
+    def hashed():
+        return beam.search_batch(
+            idx._raw, idx._norm_sq, idx._neighbors, idx._entry_candidates,
+            idx._signs, q_dev, idx._params, bits=1, k=10, beam_cap=64,
+            max_steps=61, expand_width=4, rerank_width=8,
+            visited_hash_bits=13, debug_state=True)
+
+    g, e, captured = _both_routes(monkeypatch, hashed)
+    assert captured
+    _assert_same_search(g, e)
+
+
+@pytest.mark.cuda
+def test_graphed_sharded_beam_equals_eager(cuda_device, monkeypatch):
+    """Four graph shards on cuda:i % device_count: the sharded search and
+    the step-budget runs of every shard through the captured graphs and
+    again eagerly, equal bit for bit, each shard's graphs captured on its
+    own card.  Run it with four cards too: one card cannot show a
+    per-device fault."""
+    from cphnsw_tpu_torch import ShardedIndex
+    from cphnsw_tpu_torch.parallel import sharded
+
+    count = torch.cuda.device_count()
+    devices = [torch.device("cuda", i % count) for i in range(4)]
+    rng = np.random.default_rng(12)
+    centers = rng.standard_normal((32, 32)).astype(np.float32) * 3.0
+    base = centers[rng.integers(0, 32, 8000)] + rng.standard_normal(
+        (8000, 32)).astype(np.float32)
+    queries = base[rng.choice(8000, 64, replace=False)] + 0.05
+    idx = ShardedIndex(32, bits=1, r=16).build(
+        base, sharded.make_mesh(1, 4, devices))
+    g, e, captured = _both_routes(
+        monkeypatch, lambda: idx.search_batch(queries, k=10))
+    np.testing.assert_array_equal(g[0], e[0])
+    np.testing.assert_array_equal(g[1], e[1])
+    assert {s.device for s in captured} == set(devices)
+
+    shards = list(idx._store.shards[0])
+    g, e, captured = _both_routes(
+        monkeypatch, lambda: sharded._derive_shard_step_budget(
+            shards, idx._params, idx._signs_h, 1, 16, idx.seed,
+            max_shards=4))
+    assert g == e
+    assert {s.device for s in captured} == set(devices)
+
+
+@pytest.mark.cuda
+def test_kept_graph_replays_across_calls(cuda_device, monkeypatch):
+    """A second search of the same shapes replays the graph the first
+    captured, on other queries, with the results of a fresh capture; the
+    results are copies that a later call leaves alone; a debug_state
+    search keeps no graph it captures; after drop_replays() a search
+    captures anew and runs a function patched since."""
+    from cphnsw_tpu_torch.ops import estimate
+    from cphnsw_tpu_torch.search import beam
+
+    rng = np.random.default_rng(14)
+    base = rng.standard_normal((6000, 32)).astype(np.float32)
+    idx = Index(32, bits=1, device=cuda_device).build(base).finalize()
+    real = beam._graphed
+    captured = []
+
+    def counting(fn, stream):
+        captured.append(stream)
+        return real(fn, stream)
+
+    def search(q, debug_state=False):
+        return beam.search_batch(
+            idx._raw, idx._norm_sq, idx._neighbors, idx._entry_candidates,
+            idx._signs, torch.from_numpy(q).to(cuda_device), idx._params,
+            bits=1, k=10, beam_cap=32, max_steps=100,
+            debug_state=debug_state)
+
+    q1, q2 = base[:96] + 0.4, base[96:192] - 0.4
+    beam.drop_replays()
+    monkeypatch.setattr(beam, "_graphed", counting)
+    assert search(q1, True)[2].steps > beam.DONE_CHECK_EVERY
+    assert len(captured) == 1 and beam.kept_bytes() == 0
+    first = search(q1)
+    assert len(captured) == 2 and beam.kept_bytes(cuda_device) > 0
+    again = search(q2, True)
+    assert len(captured) == 2
+    assert torch.equal(search(q1)[0], first[0]) and len(captured) == 2
+    beam.drop_replays()
+    fresh = search(q2, True)
+    assert len(captured) == 3
+    _assert_same_search(again, fresh)
+    held = first[1].clone()
+    search(q2)
+    assert torch.equal(first[1], held)
+    exact = estimate.exact_l2_sq
+    monkeypatch.setattr(estimate, "exact_l2_sq",
+                        lambda *a: exact(*a) * 2.0)
+    beam.drop_replays()
+    doubled = search(q1)
+    assert len(captured) == 5
+    assert not torch.equal(doubled[1], first[1])
+    beam.drop_replays()
+
+
+@pytest.mark.cuda
+def test_kept_graphs_free_their_memory(cuda_device, monkeypatch):
+    """Searches of two shapes under a byte budget that holds one kept
+    graph: the second drops the first and the memory held stays within
+    the budget; under a budget of 0 a search keeps nothing, and the
+    allocated and (after empty_cache) reserved memory go back to what
+    they were before any graph was kept (reserved at most)."""
+    import gc
+
+    from cphnsw_tpu_torch.search import beam
+
+    rng = np.random.default_rng(15)
+    base = rng.standard_normal((20_000, 32)).astype(np.float32)
+    idx = Index(32, bits=1, device=cuda_device).build(base).finalize()
+    qa, qb = base[:256] + 0.3, base[256:384] - 0.3
+
+    def resident():
+        gc.collect()
+        torch.cuda.synchronize(cuda_device)
+        torch.cuda.empty_cache()
+        return (torch.cuda.memory_allocated(cuda_device),
+                torch.cuda.memory_reserved(cuda_device))
+
+    beam.drop_replays()
+    monkeypatch.setattr(beam, "KEPT_BYTES_PER_DEVICE", 0)
+    ids = idx.search_batch(qa, k=10)[0]      # warm, nothing kept
+    assert beam.kept_bytes() == 0
+    allocated, reserved = resident()
+    monkeypatch.setattr(beam, "KEPT_BYTES_PER_DEVICE", 2 << 30)
+    assert np.array_equal(idx.search_batch(qa, k=10)[0], ids)
+    a_bytes = beam.kept_bytes(cuda_device)
+    # the visited table alone: (256, 2^b + 1) int32 or (256, N + 1) bool
+    assert a_bytes > 256 * 20_000
+    assert resident()[0] > allocated
+    idx.search_batch(qb, k=10)
+    assert beam.kept_bytes(cuda_device) > a_bytes      # both kept
+    monkeypatch.setattr(beam, "KEPT_BYTES_PER_DEVICE", a_bytes)
+    assert np.array_equal(idx.search_batch(qa, k=10)[0], ids)
+    assert beam.kept_bytes(cuda_device) == a_bytes     # b dropped
+    idx.search_batch(qb, k=10)
+    assert 0 < beam.kept_bytes(cuda_device) < a_bytes  # a dropped
+    monkeypatch.setattr(beam, "KEPT_BYTES_PER_DEVICE", 0)
+    assert np.array_equal(idx.search_batch(qa, k=10)[0], ids)
+    assert beam.kept_bytes() == 0
+    beam.drop_replays()
+    now = resident()
+    assert now[0] == allocated and now[1] <= reserved
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises(cuda_device, monkeypatch):
+    """A step that reads a value on the host cannot be captured: the
+    search raises and does not fall back to the eager loop."""
+    from cphnsw_tpu_torch.search import beam
+
+    rng = np.random.default_rng(13)
+    base = rng.standard_normal((3000, 32)).astype(np.float32)
+    idx = Index(32, bits=1, device=cuda_device).build(base).finalize()
+    real = beam._step
+
+    def syncing(s, c):
+        bool(s.done.any())          # a device -> host read
+        return real(s, c)
+
+    q_dev = torch.from_numpy(base[:64] + 0.5).to(cuda_device)
+
+    def search():
+        return beam.search_batch(
+            idx._raw, idx._norm_sq, idx._neighbors, idx._entry_candidates,
+            idx._signs, q_dev, idx._params, bits=1, k=10, beam_cap=32,
+            max_steps=512, debug_state=True)
+
+    # the search runs past its first chunk, so it captures one
+    assert search()[2].steps > beam.DONE_CHECK_EVERY
+    beam.drop_replays()
+    monkeypatch.setattr(beam, "_step", syncing)
+    with pytest.raises(RuntimeError):
+        search()
