@@ -4,8 +4,9 @@
 
 Phases, in order; any failed check exits non-zero:
   1. environment: a CUDA device, the toolchain (torch, CUDA, nvcc, triton);
-  2. build: compile csrc/scan_keys.cu with nvcc from the checkout, print
-     ptxas's registers and spills per kernel (any spill fails); then
+  2. build: compile csrc/scan_keys.cu and csrc/beam_step.cu with nvcc from
+     the checkout, one nvcc each, both started together, print ptxas's
+     registers and spills per kernel (any spill fails); then
      fma_f32 (the one-rounding multiply-add under the kernel's plain
      version): the witness of a double rounding and a seeded sweep next
      to f32 midpoints, on the card against the CPU and against exact
@@ -48,17 +49,23 @@ Phases, in order; any failed check exits non-zero:
      on the card, and the build's peak device memory, the beam steps and
      ms per step (CUDA events), the memory the beam's kept graphs hold
      after the build (none added) and after the searches (within
-     beam.KEPT_BYTES_PER_DEVICE); (b) NNDescent's working graph of a 20k x
+     beam.KEPT_BYTES_PER_DEVICE), and each beam kernel's launches in this
+     drive (the counters set to 0 just before it; none may be 0);
+     (b) NNDescent's working graph of a 20k x
      32d store (R = 16) built on the card and on the CPU from the same
      Threefry keys: rows with equal edge sets >= 98% after the build and
      >= 99.9% after one round from the same init (a seed-4 build for
      scale), one round's priorities, sampling noise and reverse lists
      bit-equal;
   7. a 100k x 128d 4-bit graph drive (the MSB two-stage bound), recall@10
-     >= 0.90 with the same NNDescent seconds and peak memory, then save ->
-     load into a fresh CPIndex: equal ids; (f) its
-     beam with rerank_width = 8 against 0 (rerank all): id overlap, each
-     width warmed once and timed as the median of 5;
+     >= 0.90 with the same NNDescent seconds and peak memory, each beam
+     kernel's launches in it (none 0), the beam kernels against the plain
+     torch step on its beam (hashed visited, 2^15 slots), state bit-equal
+     after each of the first 16 steps and at the end, then save -> load
+     into a fresh CPIndex: equal ids; (f) its beam with rerank_width = 8
+     against 0 (rerank all): id overlap, each width warmed once and timed
+     as the median of 5, the beam kernels' launches of the width-8 runs
+     (none 0), and the kernels against the plain step at width 8 as in 7;
   8. torch.profiler over one warm 1M graph batch: device-busy share, the
      five kernels with the most device time, launches per beam step;
      (b) the beam replayed from its captured CUDA graph against the same
@@ -66,7 +73,14 @@ Phases, in order; any failed check exits non-zero:
      step count equal, also in the calls that replay a kept graph; the
      capture ms, ms per replay, the p50 batch of three routes (eager, a
      capture per call, the kept graph) and the memory the kept graph
-     holds;
+     holds; (c) the beam step's four kernels (beam_pop, beam_expand,
+     beam_merge, beam_gamma) against the plain torch step on the 1M graph
+     index (1024 queries), step by step from the same seeded state: every
+     state field bit-equal after each of the first 16 steps and at the end;
+     ms per step of each segment (CUDA events: the kernels and the torch
+     segments between them, on each path), each kernel's bound from the
+     bytes its active queries need and its roofline share, device ops a
+     step and launches per batch from the profile of phase 8;
   9. the sharded scan: ShardedScanIndex(128, bits=1) on the same 1M x 128d
      data over a (1, 4) mesh of cuda:i % device_count (4 shards of
      250,112 rows on one card), shard-native build (seconds per stage),
@@ -88,7 +102,10 @@ Phases, in order; any failed check exits non-zero:
  10. the sharded graph: ShardedIndex(128, bits=1, r=32) on the same data
      and mesh, build stages, pooled params and step budget, one warm and
      3 timed searches of the first 1024 queries, recall@10 >= 0.90 beside
-     the shards' NNDescent seconds and the build's peak memory; (c) the
+     the shards' NNDescent seconds and the build's peak memory, each beam
+     kernel's launches in it (none 0), the beam kernels against the plain
+     torch step on the first shard's beam (E = 1, beam_cap 128, dense
+     visited) as in 7; (c) the
      JAX package's call form of sharded_search (one SearchParams, one
      signs tensor, n_real last, CUDA queries): ids and distances equal
      search_batch's bit for bit with n_real = n and with None (which
@@ -116,16 +133,18 @@ Phases, in order; any failed check exits non-zero:
      version on the first search's real sketch operands, bit-equal (at
      10M on the first 64 queries of the 1024-query launch), with its ms,
      bound and the torch._int_mm yardstick.
-The graph path has no
-hand-written kernel (the JAX package's Pallas beam-step kernel was retired
-before the port); its device work is torch ops.  The last lines are the
-kernels' JSON (with every launch shape the kernel was checked at), the
+The graph path's step runs
+four hand-written kernels (kernels/beam_step.py; the JAX package's Pallas
+beam-step kernel was retired before the port, so they replace its XLA
+step) around torch's exact distances and the sums of the gamma ratios.  The last lines are the kernels'
+JSON (with every launch shape the scan kernel was checked at), the
 card's name and power limit as nvidia-smi reports them, and the result
 JSON.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import re
@@ -143,7 +162,7 @@ import torch
 
 from cphnsw_tpu_torch import CPIndex, ScanIndex
 from cphnsw_tpu_torch.graph import nndescent
-from cphnsw_tpu_torch.kernels import scan_keys
+from cphnsw_tpu_torch.kernels import beam_step, nvcc, scan_keys
 from cphnsw_tpu_torch.ops import hadamard, pack, quantize, rounding, threefry
 from cphnsw_tpu_torch.ops.rounding import fma_f32
 from cphnsw_tpu_torch.parallel import sharded
@@ -354,16 +373,22 @@ def ptxas_report(path):
     """Registers and spill bytes of each kernel in the library's ptxas
     log; fails on any spill."""
     report, name = [], None
-    for ln in scan_keys.build_log(path).read_text().splitlines():
+    for ln in nvcc.build_log(path).read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = m.group(1)
-            kind = re.search(r"(scan_keys_kernel|merge_kernel)", name)
+            kind = re.search(r"(scan_keys_kernel|beam_pop_kernel"
+                             r"|beam_expand_kernel|beam_merge_kernel"
+                             r"|beam_gamma_kernel|merge_kernel)", name)
             tmpl = re.search(r"ILb([01])ELi(\d+)E", name)
+            ws = re.search(r"beam_\w+_kernelILb([01])EE", name)
             report.append(dict(kernel=kind.group(1) if kind else name))
             if tmpl:
                 report[-1].update(fast_cvt=bool(int(tmpl.group(1))),
                                   k_chunks=int(tmpl.group(2)))
+            if ws:
+                report[-1]["workspace"] = ("shared" if ws.group(1) == "1"
+                                           else "global")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m and report:
@@ -597,7 +622,9 @@ def profile_graph_batch(g, queries, p50, card):
     """torch.profiler over one warm search_batch: device-busy time (the
     union of kernel intervals) as a share of the profiled wall time and of
     the unprofiled p50 batch latency, the five kernels with the most
-    device time, kernel launches per beam step."""
+    device time, kernel launches per beam step; returns the steps, the
+    device ops a step, the busy ms and the beam kernels' device ms and
+    launches in the batch."""
     from torch.profiler import ProfilerActivity, profile
 
     steps, _ = beam_steps(g, queries)
@@ -626,6 +653,13 @@ def profile_graph_batch(g, queries, p50, card):
         t[0] += e.time_range.end - e.time_range.start
         t[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    per_step = len(kernels) / max(steps, 1)
+    beam_ms = {name: dict(ms=sum(us for e_name, (us, _) in by_name.items()
+                                 if name + "_kernel" in e_name) / 1e3,
+                          launches=sum(c for e_name, (_, c) in by_name.items()
+                                       if name + "_kernel" in e_name))
+               for name in ("beam_pop", "beam_expand", "beam_merge",
+                            "beam_gamma")}
     log(f"[8] profile of one warm 1M graph batch (Q={len(queries)}): device "
         f"busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f}% of the "
         f"{wall_us / 1e3:.2f} ms profiled wall, "
@@ -634,8 +668,11 @@ def profile_graph_batch(g, queries, p50, card):
         f"beam steps = {len(kernels) / max(steps, 1):.1f} per step [{card}]")
     for name, (us, count) in top:
         log(f"  {us / 1e3:9.3f} ms {count:6d} launches  {name[:110]}")
+    log(f"  beam kernels in the profiled batch: {json.dumps(beam_ms)}")
     if not kernels:
         log("  the profiler recorded no device kernels")
+    return dict(steps=steps, device_ops_per_step=per_step,
+                busy_ms=busy / 1e3, beam=beam_ms)
 
 
 def resident_gib():
@@ -756,6 +793,294 @@ def beam_graph_drive(g, queries, card):
         fail(f"the kept graph holds {kept_gib} GiB, outside (0, "
              f"{beam.KEPT_BYTES_PER_DEVICE / 2**30}]")
     return res
+
+
+# Phase 8c: spin cycles (torch.cuda._sleep) before each timed segment, so
+# that the host has queued the whole segment before its first event fires
+# and the events time the device alone: ~2 ms at the H100's ~1.98 GHz
+# before a kernel path's segment, ~8 ms before a plain one (up to ~120
+# torch ops queued from the host).
+SEGMENT_SLEEP = {"kernels": 4_000_000, "plain": 16_000_000}
+# Steps whose whole state phase 8c holds equal after each step (and at the
+# end of the search).
+EQUAL_EACH_STEP = 16
+
+
+class SegmentClock:
+    """CUDA events around the segments of each beam step: the four segment
+    functions (the kernels' wrappers or their plain versions) are wrapped,
+    and the torch segments are the spans between them: the step counter,
+    the exact distance to the popped nodes, the exact rerank, the sums of
+    the gamma ratios and the step's tail.  The last output of each wrapped
+    function is kept (`last`)."""
+
+    def __init__(self, cycles: int):
+        self.cycles = cycles
+        self.steps: list[list] = []
+        self.last: dict = {}
+
+    def _mark(self, label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.steps[-1].append((label, ev))
+
+    def begin(self):
+        self.steps.append([])
+        torch.cuda._sleep(self.cycles)
+        self._mark("begin")
+
+    def end(self):
+        self._mark("end")
+
+    def wrap(self, name, fn):
+        def timed(*args):
+            self._mark(name + "<")
+            torch.cuda._sleep(self.cycles)
+            self._mark(name + "[")
+            out = self.last[name] = fn(*args)
+            self._mark(name + "]")
+            torch.cuda._sleep(self.cycles)
+            self._mark(name + ">")
+            return out
+
+        return timed
+
+    def segment_ms(self) -> list[dict]:
+        torch.cuda.synchronize()
+        spans = dict(counter=("begin", "pop<"), pop=("pop[", "pop]"),
+                     exact_pop=("pop>", "expand<"),
+                     expand=("expand[", "expand]"),
+                     exact_rerank=("expand>", "merge<"),
+                     merge=("merge[", "merge]"),
+                     gamma_sums=("merge>", "gamma<"),
+                     gamma=("gamma[", "gamma]"), tail=("gamma>", "end"))
+        out = []
+        for marks in self.steps:
+            ev = dict(marks)
+            out.append({seg: ev[a].elapsed_time(ev[b])
+                        for seg, (a, b) in spans.items()})
+        return out
+
+
+def state_diff(a, b):
+    """None when every BeamState field of a and b is equal bit for bit
+    (floats by their bits), else the largest absolute difference."""
+    worst, same = 0.0, True
+    for x, y in zip(a, b):
+        bits = (x.view(torch.int32), y.view(torch.int32)) \
+            if x.dtype == torch.float32 else (x, y)
+        if x.shape != y.shape or not torch.equal(*bits):
+            same = False
+            worst = max(worst, (x.double() - y.double()).abs().max().item()
+                        if x.shape == y.shape else float("inf"))
+    return None if same else worst
+
+
+def beam_kernel_bytes(q, done_before, active, expanded, dims) -> dict:
+    """Bytes each beam kernel must move in one step (each input read once,
+    each output written once): every query's done or active flag; a query
+    done before the step writes the pop's outputs the exact distances
+    read, one not active this step the expansion's and merge's; an active
+    query reads its beam, its popped nodes' fused rows, its query levels,
+    one visited slot per candidate (and writes one), the candidates
+    between the kernels, and writes its results and beam; the gamma update
+    reads and writes every query's terms and reads an expanding query's
+    two sums and contributing flags.  dims: (beam_cap,
+    k, E, E*R, rw, P, bytes of one fused row, bytes of one visited
+    slot)."""
+    b, k, e, er, rw, p, row, vis = dims
+    capped = rw < er
+    live = q - done_before
+    return dict(
+        beam_gamma=q * 25 + expanded * (8 + rw),
+        beam_pop=q + done_before * (13 * e + 6) + live * (4 * b + 25 * e + 27),
+        beam_expand=q + (q - active) * (2 * er + 8 * rw + vis
+                                        + (rw if capped else 0))
+        + active * (4 * p + 20 + 13 * e + e * row + 2 * er * vis + 14 * er
+                    + 8 * rw + (13 * rw if capped else 0)),
+        beam_merge=q + (q - active) * 5 * rw
+        + active * (24 * k + 13 + 17 * e + 17 * rw + 14 * er + 24 * b
+                    + (13 * rw if capped else 0)))
+
+
+# The step's segments in search/beam.py: (segment, the kernel's wrapper,
+# its plain version).
+BEAM_SEGMENTS = (("pop", "_pop", "_pop_plain"),
+                 ("expand", "_expand", "_expand_plain"),
+                 ("merge", "_merge", "_merge_plain"),
+                 ("gamma", "_gamma", "_gamma_plain"))
+BEAM_KERNELS = ("beam_pop", "beam_expand", "beam_merge", "beam_gamma")
+
+
+def beam_launches() -> dict:
+    return dict(beam_pop=beam_step.pop_launches,
+                beam_expand=beam_step.expand_launches,
+                beam_merge=beam_step.merge_launches,
+                beam_gamma=beam_step.gamma_launches)
+
+
+def zero_beam_launches():
+    beam_step.pop_launches = beam_step.expand_launches = \
+        beam_step.merge_launches = beam_step.gamma_launches = 0
+
+
+def beam_path_launches(path: str, launches: dict) -> dict:
+    """A path's beam kernel launches, read just after its drive (the
+    counters set to 0 just before): fails unless every kernel
+    launched."""
+    log(f"  beam kernel launches in the {path} drive (host calls: a graph "
+        f"replay launches its captured kernels again): "
+        f"{json.dumps(launches)}")
+    if min(launches.values()) <= 0:
+        fail(f"the {path} drive did not launch every beam kernel: "
+             f"{launches}")
+    return launches
+
+
+def beam_equal_drive(label, start, max_steps, card, clocks=None):
+    """The beam step's four kernels against the plain torch step
+    (beam._plain_step) from the state start() seeds (called twice), step
+    by step: every state field bit-equal after each of the first
+    EQUAL_EACH_STEP steps and at the end (all queries done, or
+    max_steps run), or the run fails.  clocks: a SegmentClock per route,
+    wrapped around the segments (phase 8c).  Returns the comparison and,
+    per step, (queries done before it, active after it, expanding)."""
+    (sk, ck), (sp, cp) = start(), start()
+    real = {fn: getattr(beam, fn) for _, kernel, plain in BEAM_SEGMENTS
+            for fn in (kernel, plain)}
+    if clocks is not None:
+        for seg, kernel, plain in BEAM_SEGMENTS:
+            setattr(beam, kernel, clocks["kernels"].wrap(seg, real[kernel]))
+            setattr(beam, plain, clocks["plain"].wrap(seg, real[plain]))
+    counts, diffs = [], []
+    try:
+        for step in range(max_steps):
+            done_before = int(sk.done.sum())
+            if clocks is not None:
+                clocks["kernels"].begin()
+            sk = beam._step(sk, ck)
+            if clocks is not None:
+                clocks["kernels"].end()
+                clocks["plain"].begin()
+            sp = beam._plain_step(sp, cp)
+            if clocks is not None:
+                clocks["plain"].end()
+                counts.append((done_before, int((~sk.done).sum()), int(
+                    clocks["kernels"].last["pop"].expand.sum())))
+            finished = bool(sk.done.all()) and bool(sp.done.all())
+            if step < EQUAL_EACH_STEP or finished or step == max_steps - 1:
+                diffs.append((step + 1, state_diff(sk, sp)))
+            if finished:
+                break
+    finally:
+        for fn, f in real.items():
+            setattr(beam, fn, f)
+    unequal = [(st, d) for st, d in diffs if d is not None]
+    q, beam_cap = sk.beam_est.shape
+    res = dict(steps=diffs[-1][0], max_steps=max_steps,
+               finished=bool(sk.done.all()),
+               shape=dict(q=q, beam_cap=beam_cap, k=ck.k,
+                          expand_width=ck.expand_width, r=ck.r, rw=ck.rw,
+                          p=ck.raw.shape[1], bits=ck.bits,
+                          visited_hash_bits=ck.h_size.bit_length() - 1
+                          if ck.h_size else 0),
+               equal_after_steps=[st for st, d in diffs if d is None],
+               unequal=unequal,
+               max_abs_err=max((d for _, d in unequal), default=0.0))
+    log(f"[{label}] beam kernels against the plain torch step "
+        f"({json.dumps(res['shape'])}; {res['steps']} steps of at most "
+        f"{max_steps}, all done: {res['finished']}; done read every "
+        f"step): state bit-equal after steps {res['equal_after_steps']}; "
+        f"unequal {unequal} [{card}]")
+    if unequal:
+        fail(f"[{label}] the beam kernels differ from the plain step: "
+             f"{unequal}")
+    return res, counts
+
+
+def index_beam_start(g, q_dev, k, rerank_width=0):
+    """A start() for beam_equal_drive: the seeded state and constants of
+    Index g's own beam call on q_dev."""
+    return lambda: beam._start(
+        g._raw, g._norm_sq, g._neighbors, g._entry_candidates, g._signs,
+        q_dev, g._params, g._bits, k, max(2 * g._r, 4 * k), 4,
+        g._expand_width, rerank_width, g._visited_hash_bits())
+
+
+def shard_beam_start(idx, queries, k):
+    """A start() for beam_equal_drive: the seeded state and constants of
+    ShardedIndex idx's beam on its first shard, as _sharded_search calls
+    it (beam_cap 128, E = 1, dense visited, 4 seeds)."""
+    dev = idx._mesh.devices[0, 0]
+    sh = idx._store.shards[0][0]
+    q_dev = torch.from_numpy(queries).to(dev)
+    return lambda: beam._start(
+        sh.raw, sh.norm_sq, sh.neighbors, sh.entry_candidates,
+        idx._signs[dev], q_dev, idx._params_dev[dev], idx.bits, k, 128, 4,
+        1, 0, 0)
+
+
+def beam_kernel_drive(g, queries, card, prof):
+    """Phase 8c: beam_equal_drive on the 1M graph index (the search's own
+    arguments), with ms per step of each segment on both paths (CUDA
+    events, SegmentClock), each kernel's bound from the bytes its active
+    queries need (beam_kernel_bytes) and its roofline share; device ops a
+    step and launches per batch from phase 8's profile (prof).  Returns
+    the kernels' entries for the kernels line."""
+    q_dev = torch.from_numpy(queries).cuda()
+    k, r, ew = K, g._r, g._expand_width
+    hash_bits = g._visited_hash_bits()
+    clocks = {route: SegmentClock(c) for route, c in SEGMENT_SLEEP.items()}
+    res, counts = beam_equal_drive("8c", index_beam_start(g, q_dev, k),
+                                   g._max_steps(k), card, clocks)
+    steps = len(counts)
+    seg = {route: clock.segment_ms() for route, clock in clocks.items()}
+    mean = {route: {name: statistics.fmean(t[name] for t in times)
+                    for name in times[0]} for route, times in seg.items()}
+    q = len(queries)
+    row = (5 + g._bits * g._neighbors.words) * r * 4
+    dims = (max(2 * r, 4 * k), k, ew, ew * r, ew * r, g._raw.shape[1], row,
+            4 if hash_bits else 1)
+    per_step = [beam_kernel_bytes(q, *n, dims) for n in counts]
+    res.update(active_per_step=[a for _, a, _ in counts],
+               segment_ms_per_step=mean,
+               step_ms={route: sum(m.values()) for route, m in mean.items()},
+               device_ops_per_step=prof["device_ops_per_step"])
+    for route in ("kernels", "plain"):
+        log(f"  {route}: ms per step " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in mean[route].items())
+            + f"; step {res['step_ms'][route]:.4f} ms (device time of the "
+            f"segments, CUDA events) [{card}]")
+    log(f"  device ops a step in phase 8's profiled batch "
+        f"{prof['device_ops_per_step']:.1f} ({prof['steps']} steps); beam "
+        f"kernels there {json.dumps(prof['beam'])} [{card}]")
+    entries = []
+    for name, segment in zip(BEAM_KERNELS, ("pop", "expand", "merge",
+                                            "gamma")):
+        nbytes = statistics.fmean(b[name] for b in per_step)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms, plain_ms = mean["kernels"][segment], mean["plain"][segment]
+        profiled = prof["beam"][name]
+        entries.append(dict(
+            name=name, route="cuda",
+            source="cphnsw_tpu_torch/csrc/beam_step.cu",
+            replaces="cphnsw_tpu/search/beam.py:244",
+            max_abs_err=res["max_abs_err"],
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            library_ms=None, roofline_share=bound_ms / ms,
+            bytes_per_launch=nbytes,
+            launches_per_batch=profiled["launches"],
+            profiled_ms_per_launch=profiled["ms"] / max(
+                profiled["launches"], 1)))
+        log(f"  {name}: {ms:.4f} ms per launch (mean of {steps} steps), "
+            f"plain segment {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({nbytes / 1e6:.3f} MB a step, bytes), roofline share "
+            f"{bound_ms / ms:.4f}; profiled batch {profiled['launches']} "
+            f"launches at {entries[-1]['profiled_ms_per_launch']:.4f} ms "
+            f"[{card}]")
+    if min(p["launches"] for p in prof["beam"].values()) <= 0:
+        fail(f"the profiled graph batch ran no beam kernel: {prof['beam']}")
+    return entries, res
 
 
 def timed_searches(search, queries, runs):
@@ -1328,7 +1653,10 @@ def brute_force_drive(small, card):
 def rerank_width_drive(g, queries, card):
     """Phase 7f: the beam with rerank_width = RERANK_WIDTH against the
     default (rerank every candidate) on the same queries; each width is
-    warmed once, then timed as the median of TIMED_RUNS runs."""
+    warmed once, then timed as the median of TIMED_RUNS runs.  The beam
+    kernels' launches of the RERANK_WIDTH runs are counted alone (the
+    counters set to 0 just before them), then its step is held to the
+    plain step (beam_equal_drive)."""
     q_dev = torch.from_numpy(queries).cuda()
     runs = {}
     for width in (0, RERANK_WIDTH):
@@ -1338,9 +1666,12 @@ def rerank_width_drive(g, queries, card):
             out[:] = g._beam(q_dev, g._entry_candidates, K, g._max_steps(K),
                              rerank_width=width, debug_state=True)
 
+        zero_beam_launches()
         ms = median_ms(search)
+        launches = beam_launches()
         ids, d, state = out
         runs[width] = (ids.cpu().numpy(), d.cpu().numpy(), state.steps, ms)
+    launches = beam_path_launches(f"rerank_width={RERANK_WIDTH}", launches)
     (ids0, _, s0, ms0), (ids8, d8, s8, ms8) = runs[0], runs[RERANK_WIDTH]
     over = float((ids8[:, :, None] == ids0[:, None, :]).any(-1).mean())
     raw = g._raw.cpu().numpy()
@@ -1353,7 +1684,11 @@ def rerank_width_drive(g, queries, card):
         f"of {TIMED_RUNS}) [{card}]")
     if (ids8 < 0).any() or not np.allclose(d8, exact, rtol=1e-3, atol=1e-3):
         fail("rerank_width beam: missing ids or inexact distances")
-    return dict(overlap=over, steps=s8, ms=ms8, steps_full=s0, ms_full=ms0)
+    equal, _ = beam_equal_drive(
+        "7f", index_beam_start(g, q_dev, K, RERANK_WIDTH), g._max_steps(K),
+        card)
+    return launches, dict(overlap=over, steps=s8, ms=ms8, steps_full=s0,
+                          ms_full=ms0, kernels_equal_plain=equal)
 
 
 def round_f32(x: Fraction) -> float:
@@ -1851,13 +2186,19 @@ def main():
     except ImportError as exc:
         log(f"  triton does not import: {exc}")
 
-    # 2. build
-    path, build_s = scan_keys.build_library()
-    log(f"[2] built {Path(path).name} in {build_s:.2f} s "
-        f"(0 = already built from this source); dynamic shared memory per "
-        f"block at P = 128: "
+    # 2. build: one nvcc per source, started together
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(m.build_library) for m in (scan_keys, beam_step)]
+    (path, build_s), (beam_path, beam_build_s) = [j.result() for j in jobs]
+    log(f"[2] built {Path(path).name} in {build_s:.2f} s and "
+        f"{Path(beam_path).name} in {beam_build_s:.2f} s, "
+        f"{time.perf_counter() - t0:.2f} s in all (0 = already built from "
+        f"this source); dynamic shared memory per block at P = 128: "
         f"{scan_keys.load_library().scan_keys_smem_bytes(128)} bytes")
     ptxas = ptxas_report(path)
+    beam_ptxas = ptxas_report(beam_path)
+    beam_step.load_library()
     fma = fma_drive(card)
 
     # 3. kernel vs plain version at the main path's shapes
@@ -1951,18 +2292,26 @@ def main():
         f"128d; host ops "
         f"{'native C library loaded' if lib is not None else 'numpy fallback (no C library)'}")
     scan_keys.launches = 0
+    zero_beam_launches()
     gidx, gq, _, gp50 = graph_drive("graph 1M x 128d 1-bit", data, 1, card)
     graph_launches = scan_keys.launches
-    log(f"  scan_keys launches in the graph drive: {graph_launches} "
-        f"(the graph path runs torch ops only)")
+    beam_by_path = dict(graph=beam_path_launches("1M graph",
+                                                 beam_launches()))
+    log(f"  scan_keys launches in the graph drive: {graph_launches}")
     phases["nndescent"] = nndescent_drive(card)
 
     # 7. graph N-bit drive + save -> load
     log("[7] graph drive: CPIndex(128, bits=4, engine='graph') on 100k x 128d")
     scan_keys.launches = 0
+    zero_beam_launches()
     sidx, sq, sids, _ = graph_drive("graph 100k x 128d 4-bit", small, 4,
                                     card)
+    beam_by_path["graph_4bit"] = beam_path_launches("100k 4-bit graph",
+                                                    beam_launches())
     log(f"  scan_keys launches in the graph drive: {scan_keys.launches}")
+    phases["beam_kernels_4bit"], _ = beam_equal_drive(
+        "7", index_beam_start(sidx._index, torch.from_numpy(sq).cuda(), K),
+        sidx._index._max_steps(K), card)
     with tempfile.TemporaryDirectory() as tmp:
         f = Path(tmp) / "graph.npz"
         t0 = time.perf_counter()
@@ -1975,12 +2324,15 @@ def main():
             f"{fresh.engine}")
     if fresh.engine != "graph" or not np.array_equal(sids, sids2):
         fail("graph ids after save -> load differ")
-    phases["rerank_width"] = rerank_width_drive(sidx._index, sq, card)
+    beam_by_path["rerank8"], phases["rerank_width"] = rerank_width_drive(
+        sidx._index, sq, card)
     del sidx, fresh
 
     # 8. profile of the 1M graph batch; 8b. its graphed beam against eager
-    profile_graph_batch(gidx._index, gq, gp50, card)
+    prof = profile_graph_batch(gidx._index, gq, gp50, card)
     phases["beam_graph"] = beam_graph_drive(gidx._index, gq, card)
+    beam_kernels, phases["beam_kernels"] = beam_kernel_drive(
+        gidx._index, gq, card, prof)
     del gidx
     torch.cuda.empty_cache()
 
@@ -2009,10 +2361,15 @@ def main():
     log(f"[10] sharded graph: ShardedIndex(128, bits=1, r=32) on 1M x 128d "
         f"over mesh {mesh.shape}")
     scan_keys.launches = 0
+    zero_beam_launches()
     gsh, gq, _ = sharded_graph_drive("sharded graph 1M x 128d 1-bit", data,
                                      1, mesh, card)
     g_launches = scan_keys.launches
+    beam_by_path["sharded_graph"] = beam_path_launches("1M sharded graph",
+                                                       beam_launches())
     log(f"  scan_keys launches in the sharded graph drive: {g_launches}")
+    phases["beam_kernels_shard"], _ = beam_equal_drive(
+        "10", shard_beam_start(gsh, gq, K), gsh._max_steps(K), card)
     phases["jax_form_sharded_graph"] = jax_form_graph_drive(gsh, gq, mesh,
                                                             card)
     del gsh
@@ -2073,8 +2430,18 @@ def main():
         sharded_scan_stage_ms=s_split,
         sharded_scan_launches_per_batch=s_per_batch,
     )]
+    for entry in beam_kernels:
+        name = entry["name"]
+        kernels.append(dict(
+            entry, launches=beam_by_path["graph"][name],
+            launches_by_path={path: n[name]
+                              for path, n in beam_by_path.items()},
+            build_s=beam_build_s,
+            ptxas=[r for r in beam_ptxas
+                   if r["kernel"] == entry["name"] + "_kernel"]))
     phases["fma_f32"] = fma
-    log(f"phases 2 (fma_f32), 5a-5f, 6b, 7f, 8b, 9c, 9d, 10b, 10c: "
+    log(f"phases 2 (fma_f32), 5a-5f, 6b, 7, 7f, 8b, 8c, 9c, 9d, 10, 10b, "
+        f"10c: "
         f"{json.dumps(phases)}")
     log(f"phase 12: {json.dumps(workloads)}")
     log(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -25,27 +25,23 @@ so another rounding order would reorder ~1% of the keys.)
 version ``scan_keys_reference`` for CPU tensors; it never falls back from
 one to the other.  The CUDA source is compiled with ``nvcc`` at first use
 into ``build/cphnsw_tpu_torch/`` beside the package and loaded with
-ctypes.  ``launch_plan`` is the launch's shape in plain Python: queries
-padded to the kernel's 128-query tile, K to 16 bytes, and the number of
-group ranges (``split_count``) that a small batch's tiles are spread over
-to fill the card, merged exactly on the card afterwards.
+ctypes (``kernels/nvcc.py``).  ``launch_plan`` is the launch's shape in
+plain Python: queries padded to the kernel's 128-query tile, K to 16
+bytes, and the number of group ranges (``split_count``) that a small
+batch's tiles are spread over to fill the card, merged exactly on the
+card afterwards.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from cphnsw_tpu_torch.kernels import nvcc
 from cphnsw_tpu_torch.ops.rounding import fma_f32
 
 GROUP_BITS = 10
@@ -70,11 +66,9 @@ Q_TILE = 128
 BIN_TILE = 32
 K_ALIGN = 16
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "scan_keys.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
-    "cphnsw_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = nvcc.CSRC / "scan_keys.cu"
+BUILD_DIR = nvcc.BUILD_DIR
+NVCC_FLAGS = nvcc.NVCC_FLAGS
 
 # Number of CUDA scan kernel launches, and of merge kernel launches (one
 # more per split call); the plain version does not count.
@@ -236,19 +230,13 @@ def merge_key_planes(parts: list[torch.Tensor]) -> torch.Tensor:
 
 
 def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/scan_keys.cu")
-    return path
+    return nvcc.nvcc(SOURCE)
 
 
 def library_path(extra_flags=(), build_dir: Path = BUILD_DIR) -> Path:
     """Where ``build_library`` puts the build with NVCC_FLAGS plus
     `extra_flags`: named by the hash of the source and all the flags."""
-    flags = " ".join([*NVCC_FLAGS, *extra_flags])
-    tag = hashlib.sha256(SOURCE.read_bytes() + flags.encode()).hexdigest()[:16]
-    return Path(build_dir) / f"libscan_keys-{tag}.so"
+    return nvcc.library_path(SOURCE, extra_flags, build_dir)
 
 
 def build_library(extra_flags=(),
@@ -258,24 +246,10 @@ def build_library(extra_flags=(),
     spent compiling), 0.0 seconds when that library already exists.
     ptxas's report (registers, shared memory, spills) is kept beside it
     (``build_log``)."""
-    out = library_path(extra_flags, build_dir)
-    if out.exists():
-        return out, 0.0
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    build_log(out).write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0
+    return nvcc.build_library(SOURCE, extra_flags, build_dir)
 
 
-def build_log(library: Path) -> Path:
-    return library.with_suffix(".log")
+build_log = nvcc.build_log
 
 
 @functools.cache
@@ -284,7 +258,7 @@ def load_library(path: Path | None = None) -> ctypes.CDLL:
     None: the package's own build, compiled at first use."""
     if path is None:
         path = build_library()[0]
-    lib = ctypes.CDLL(str(Path(path).resolve()))
+    lib = nvcc.load(path)
     fn = lib.scan_keys_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]

@@ -39,7 +39,13 @@ same up to which duplicate expansions happen (the result heap dedups):
     the last in row order (``_last_writers``), so its searches repeat
     exactly on CUDA; the JAX scatter fixes no winner;
   * the fastscan int32 contraction is an exact fp32 product
-    (``estimate.fastscan_sums``).
+    (``estimate.fastscan_sums``);
+  * on CUDA the step's pop, expansion and merge are three hand-written
+    kernels (``kernels/beam_step.py``), one block per query, around the
+    exact distances, which stay torch ops (``estimate.exact_l2_sq``), and
+    a fourth updates gamma from two torch sums: they update the state in
+    place, skip the queries that are done, and give the bits of the
+    step's plain segments (``_plain_step``, which the CPU runs).
 """
 
 from __future__ import annotations
@@ -53,12 +59,13 @@ import torch
 
 from cphnsw_tpu_torch.graph.build import NeighborStore
 from cphnsw_tpu_torch.graph.nndescent import top_k_smallest
+from cphnsw_tpu_torch.kernels import beam_step
 from cphnsw_tpu_torch.ops import estimate, hadamard, pack, quantize
 from cphnsw_tpu_torch.ops.estimate import full_fp32
+from cphnsw_tpu_torch.ops.quantize import EPS_SMALL
 from cphnsw_tpu_torch.utils.device import resolve_device
 
 FLOAT_MAX = float(torch.finfo(torch.float32).max)
-EPS_SMALL = 1e-12
 # Steps between host reads of the done flags (one device->host sync each);
 # on CUDA, the steps of one captured graph.
 DONE_CHECK_EVERY = 8
@@ -196,6 +203,32 @@ def search_batch(raw, norm_sq, neighbors: NeighborStore, entry_candidates,
     rest keep their estimates as beam priority); 0 reranks every
     candidate.  Returns (ids (Q, k) int32, dists (Q, k) f32 exact squared
     L2, ascending), plus the final BeamState when debug_state."""
+    buf, consts = _start(raw, norm_sq, neighbors, entry_candidates, signs,
+                         queries, params, bits, k, beam_cap, n_seeds,
+                         expand_width, rerank_width, visited_hash_bits)
+    dev = raw.device
+    keep = not debug_state
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            buf, steps = _run_steps(buf, consts, max_steps, neighbors, keep)
+    else:
+        buf, steps = _run_steps(buf, consts, max_steps, neighbors, keep)
+
+    # copies: on CUDA the buffers are kept for the next call
+    ids = torch.where(buf.res_d < FLOAT_MAX, buf.res_ids, -1)
+    if not debug_state:
+        return ids, buf.res_d.clone()
+    return ids, buf.res_d.clone(), BeamState(
+        *(t.clone() for t in buf))._replace(steps=steps)
+
+
+def _start(raw, norm_sq, neighbors: NeighborStore, entry_candidates, signs,
+           queries, params: SearchParams, bits: int, k: int, beam_cap: int,
+           n_seeds: int, expand_width: int, rerank_width: int,
+           visited_hash_bits: int) -> tuple[BeamState, _Consts]:
+    """search_batch's seeded state before the first step (its step
+    counter a () int32 tensor on raw's device) and the constants the steps
+    read."""
     n, p = raw.shape
     q = queries.shape[0]
     r = neighbors.r
@@ -255,20 +288,7 @@ def search_batch(raw, norm_sq, neighbors: NeighborStore, entry_candidates,
         params=params, bits=bits, k=k, r=r, words=neighbors.words,
         expand_width=expand_width,
         rw=min(rerank_width, er) if rerank_width > 0 else er, h_size=h_size)
-
-    keep = not debug_state
-    if dev.type == "cuda":
-        with torch.cuda.device(dev):
-            buf, steps = _run_steps(buf, consts, max_steps, neighbors, keep)
-    else:
-        buf, steps = _run_steps(buf, consts, max_steps, neighbors, keep)
-
-    # copies: on CUDA the buffers are kept for the next call
-    ids = torch.where(buf.res_d < FLOAT_MAX, buf.res_ids, -1)
-    if not debug_state:
-        return ids, buf.res_d.clone()
-    return ids, buf.res_d.clone(), BeamState(
-        *(t.clone() for t in buf))._replace(steps=steps)
+    return buf, consts
 
 
 class _Replay(NamedTuple):
@@ -453,32 +473,72 @@ def _advance(buf: BeamState, c: _Consts, steps: int):
             old.copy_(new)
 
 
-def _step(s: BeamState, c: _Consts) -> BeamState:
-    """One beam step for the whole batch.  Fixed shapes and no value read
-    on the host, so a chunk of steps can be captured in a CUDA graph."""
-    q = s.beam_est.shape[0]
-    n, p = c.raw.shape
-    r, k, bits, params = c.r, c.k, c.bits, c.params
-    expand_width = c.expand_width
-    er = expand_width * r
-    h_size = c.h_size
-    num_levels = params.slack_levels.shape[0]
-    k_scale = float((1 << bits) - 1)
-    msb_scale = 1.0 if bits < 2 else 3.0
-    beam_est, beam_ids, beam_lower = s.beam_est, s.beam_ids, s.beam_lower
-    res_ids, res_d, res_step = s.res_ids, s.res_d, s.res_step
-    gamma_q, visited = s.gamma_q, s.visited
-    next_step = s.steps + 1
 
-    # ---- pop the best E beam entries per query ----
+
+# ------------------------------------------------------------ the step
+#
+# One step in segments: the pop, the exact distance to each popped node,
+# the expansion, the exact distances of the candidates it picked for the
+# rerank, the merge, two sums of the merge's ratios and the gamma update.
+# The exact distances and the sums are torch ops on every device; the
+# other segments are plain torch (`_pop_plain` ...) on the CPU and the
+# kernels of kernels/beam_step.py on CUDA (`_pop` ...), which update the
+# state in place and equal the plain segments bit for bit.
+
+
+class Popped(NamedTuple):
+    beam_est: torch.Tensor    # (Q, B) the popped entries of active queries
+                              # at FLOAT_MAX
+    done: torch.Tensor        # (Q,) bool, after this step
+    slack_cnt: torch.Tensor   # (Q,) int32, after this step
+    active: torch.Tensor      # (Q,) bool: not done
+    expand: torch.Tensor      # (Q,) bool: any entry expanded
+    expand_e: torch.Tensor    # (Q, E) bool: the popped entries expanded
+    pop_ids: torch.Tensor     # (Q, E) int32
+    cur_safe: torch.Tensor    # (Q, E) int64: expanded node, 0 elsewhere
+    dot_slack: torch.Tensor   # (Q,) f32: the slack level of this step
+
+
+class Expanded(NamedTuple):
+    nbr_ids: torch.Tensor     # (Q, E*R) int32, as the fused rows hold them
+    est: torch.Tensor         # (Q, E*R) f32 estimated distances
+    lower: torch.Tensor       # (Q, E*R) f32 their lower bounds
+    cand_ok: torch.Tensor     # (Q, E*R) bool: new, past the lower gate
+    rerank: torch.Tensor      # (Q, E*R) bool: also past the estimate gate
+    rr_slots: torch.Tensor | None  # (Q, rw) int64 candidates picked, None
+                                   # when rw = E*R (all of them)
+    rr_node: torch.Tensor     # (Q, rw) int64 their node ids (0: invalid)
+    rr_ok: torch.Tensor       # (Q, rw) bool: rerank at those slots
+    est_rr: torch.Tensor      # (Q, rw) f32: est at those slots
+
+
+class Merged(NamedTuple):
+    res_ids: torch.Tensor
+    res_d: torch.Tensor
+    res_step: torch.Tensor
+    last_improve: torch.Tensor
+    beam_est: torch.Tensor
+    beam_ids: torch.Tensor
+    beam_lower: torch.Tensor
+    ratio: torch.Tensor       # (Q, rw) f32: est / exact of the candidates
+                              # that feed the gamma adaptation, 0 elsewhere
+    contrib: torch.Tensor     # (Q, rw) bool: those candidates
+
+
+def _pop_plain(s: BeamState, c: _Consts) -> Popped:
+    """Pop the best E beam entries of each query: the DABS termination,
+    the lower-bound skip, the nodes to expand and the slack level."""
+    k, expand_width = c.k, c.expand_width
+    num_levels = c.params.slack_levels.shape[0]
+    beam_est = s.beam_est
     pop_est, pop_slots = top_k_smallest(beam_est, expand_width)
-    pop_lower = beam_lower.gather(1, pop_slots)
-    pop_ids = beam_ids.gather(1, pop_slots)
+    pop_lower = s.beam_lower.gather(1, pop_slots)
+    pop_ids = s.beam_ids.gather(1, pop_slots)
     pop_valid = pop_est < FLOAT_MAX
 
-    d_k = res_d[:, k - 1]
+    d_k = s.res_d[:, k - 1]
     res_full = d_k < FLOAT_MAX
-    terminate = res_full & (pop_est[:, 0] >= gamma_q * d_k)
+    terminate = res_full & (pop_est[:, 0] >= s.gamma_q * d_k)
     done = s.done | ~pop_valid[:, 0] | terminate
     active = ~done
 
@@ -492,13 +552,31 @@ def _step(s: BeamState, c: _Consts) -> BeamState:
     expand = expand_e.any(dim=1)
     cur_safe = torch.where(expand_e, pop_ids, 0).long()       # (Q, E)
 
-    # exact distance to each popped node = d_qp^2
-    d_qp_sq = estimate.exact_l2_sq(c.qpad, c.qnorm, c.raw[cur_safe],
-                                   c.norm_sq[cur_safe])       # (Q, E)
-
     # slack-level escalation
-    dot_slack = params.slack_levels[s.slack_cnt.clamp_max(num_levels - 1)]
+    dot_slack = c.params.slack_levels[s.slack_cnt.clamp_max(num_levels - 1)]
     slack_cnt = s.slack_cnt + expand_e.sum(dim=1, dtype=torch.int32)
+    return Popped(beam_est, done, slack_cnt, active, expand, expand_e,
+                  pop_ids, cur_safe, dot_slack)
+
+
+def _expand_plain(s: BeamState, c: _Consts, pop: Popped,
+                  d_qp_sq) -> Expanded:
+    """Score the E*R neighbours of the popped nodes (d_qp_sq: (Q, E)
+    exact distances to them), drop the seen ones and the repeats, mark the
+    new ones visited (s.visited, in place), gate them, and pick the rw to
+    rerank exactly."""
+    q = s.beam_est.shape[0]
+    n, p = c.raw.shape
+    r, k, bits, params = c.r, c.k, c.bits, c.params
+    expand_width = c.expand_width
+    er = expand_width * r
+    h_size = c.h_size
+    visited = s.visited
+    k_scale = float((1 << bits) - 1)
+    msb_scale = 1.0 if bits < 2 else 3.0
+    d_k = s.res_d[:, k - 1]
+    res_full = d_k < FLOAT_MAX
+    expand_e, cur_safe = pop.expand_e, pop.cur_safe
 
     # ---- score all E*R candidates per query ----
     g = c.fused[cur_safe]                                    # (Q, E, F)
@@ -524,7 +602,7 @@ def _step(s: BeamState, c: _Consts) -> BeamState:
 
     calib = estimate.CalibParams(
         affine_a=params.affine_a, affine_b=params.affine_b,
-        ip_qo_floor=params.ip_qo_floor, dot_slack=dot_slack[:, None])
+        ip_qo_floor=params.ip_qo_floor, dot_slack=pop.dot_slack[:, None])
     est, lower = estimate.distances_with_bounds(
         ip_full, ip_bound, aux[0], aux[1], aux[2],
         d_qp_sq.repeat_interleave(r, dim=1), calib)
@@ -554,24 +632,34 @@ def _step(s: BeamState, c: _Consts) -> BeamState:
     # ---- capped exact rerank: only the rw best estimates fetch raw
     # vectors; the rest keep their estimates ----
     if c.rw == er:
-        rr_slots = None
-        rr_ok, rr_node, est_rr = rerank, nbr_safe, est
-    else:
-        rr_slots = top_k_smallest(torch.where(rerank, est, FLOAT_MAX),
-                                  c.rw)[1]                     # (Q, rw)
-        rr_ok = rerank.gather(1, rr_slots)
-        rr_node = nbr_safe.gather(1, rr_slots)
-        est_rr = est.gather(1, rr_slots)
-    rr_vecs = c.raw[rr_node]                                 # (Q, rw, P)
-    exact_rr = estimate.exact_l2_sq(c.qpad, c.qnorm, rr_vecs,
-                                    (rr_vecs * rr_vecs).sum(dim=-1))
+        return Expanded(nbr_ids, est, lower, cand_ok, rerank, None,
+                        nbr_safe, rerank, est)
+    rr_slots = top_k_smallest(torch.where(rerank, est, FLOAT_MAX),
+                              c.rw)[1]                       # (Q, rw)
+    return Expanded(nbr_ids, est, lower, cand_ok, rerank, rr_slots,
+                    nbr_safe.gather(1, rr_slots), rerank.gather(1, rr_slots),
+                    est.gather(1, rr_slots))
+
+
+def _merge_plain(s: BeamState, c: _Consts, pop: Popped, d_qp_sq,
+                 ex: Expanded, exact_rr, next_step) -> Merged:
+    """Push the reranked candidates (exact_rr: (Q, rw) their exact
+    distances) and the popped nodes into the results, enqueue the
+    candidates under the DABS gate into the beam, and give each reranked
+    candidate's est / exact ratio to the gamma adaptation."""
+    k = c.k
+    res_ids, res_d, res_step = s.res_ids, s.res_d, s.res_step
+    active, expand, expand_e = pop.active, pop.expand, pop.expand_e
+    pop_ids, beam_est = pop.pop_ids, pop.beam_est
+    rr_ok, rr_node, est_rr = ex.rr_ok, ex.rr_node, ex.est_rr
+    warmup = ~(res_d[:, k - 1] < FLOAT_MAX)
 
     # ---- result heap pushes: reranked candidates + popped nodes ----
     pop_in_res = ((pop_ids[:, :, None] == res_ids[:, None, :])
                   & (pop_ids >= 0)[:, :, None]).any(dim=-1)
     rr_in_res = ((rr_node[:, :, None] == res_ids[:, None, :])
                  & rr_ok[:, :, None]).any(dim=-1)
-    push_ids = torch.cat([rr_node.int(), cur_safe.int()], dim=1)
+    push_ids = torch.cat([rr_node.int(), pop.cur_safe.int()], dim=1)
     push_d = torch.cat([
         torch.where(rr_ok & ~rr_in_res, exact_rr, FLOAT_MAX),
         torch.where(expand_e & ~pop_in_res, d_qp_sq, FLOAT_MAX),
@@ -587,34 +675,44 @@ def _step(s: BeamState, c: _Consts) -> BeamState:
 
     # ---- DABS enqueue gate ----
     d_k_new = res_d[:, k - 1]
-    dabs_thresh = torch.where(d_k_new < FLOAT_MAX, gamma_q * d_k_new,
+    dabs_thresh = torch.where(d_k_new < FLOAT_MAX, s.gamma_q * d_k_new,
                               FLOAT_MAX)[:, None]
     # reranked entries carry exact distances as beam priority
-    if rr_slots is None:
-        enq_val = torch.where(rerank, exact_rr, est)
+    if ex.rr_slots is None:
+        enq_val = torch.where(ex.rerank, exact_rr, ex.est)
     else:
-        enq_val = est.scatter(1, rr_slots,
-                              torch.where(rr_ok, exact_rr, est_rr))
-    enq_lower = torch.where(warmup[:, None], enq_val, lower)
-    enq = cand_ok & (enq_val < dabs_thresh)
+        enq_val = ex.est.scatter(1, ex.rr_slots,
+                                 torch.where(rr_ok, exact_rr, est_rr))
+    enq_lower = torch.where(warmup[:, None], enq_val, ex.lower)
+    enq = ex.cand_ok & (enq_val < dabs_thresh)
     all_est = torch.cat([beam_est, torch.where(enq, enq_val, FLOAT_MAX)],
                         dim=1)
     beam_cap = beam_est.shape[1]
     beam_est_new, slot_b = top_k_smallest(all_est, beam_cap)
-    beam_ids_new = torch.cat([beam_ids, nbr_ids], dim=1).gather(1, slot_b)
-    beam_lower_new = torch.cat([beam_lower, enq_lower], dim=1).gather(
+    beam_ids_new = torch.cat([s.beam_ids, ex.nbr_ids], dim=1).gather(
+        1, slot_b)
+    beam_lower_new = torch.cat([s.beam_lower, enq_lower], dim=1).gather(
         1, slot_b)
     beam_est = torch.where(active[:, None], beam_est_new, beam_est)
-    beam_ids = torch.where(active[:, None], beam_ids_new, beam_ids)
-    beam_lower = torch.where(active[:, None], beam_lower_new, beam_lower)
+    beam_ids = torch.where(active[:, None], beam_ids_new, s.beam_ids)
+    beam_lower = torch.where(active[:, None], beam_lower_new, s.beam_lower)
 
-    # ---- online gamma_q adaptation ----
+    # ---- the gamma adaptation's terms ----
     contrib = rr_ok & ~warmup[:, None] & (exact_rr > EPS_SMALL)
     ratio = torch.where(contrib, est_rr / exact_rr.clamp_min(EPS_SMALL),
                         0.0)
-    ratio_sum = s.ratio_sum + torch.where(expand, ratio.sum(dim=1), 0.0)
-    ratio_sq = s.ratio_sq + torch.where(expand, (ratio * ratio).sum(dim=1),
-                                        0.0)
+    return Merged(res_ids, res_d, res_step, last_improve, beam_est,
+                  beam_ids, beam_lower, ratio, contrib)
+
+
+def _gamma_plain(s: BeamState, c: _Consts, expand, row_sum, row_sq,
+                 contrib):
+    """The online gamma_q adaptation from each query's sums of its ratios
+    (row_sum) and of their squares (row_sq) this step: (gamma_q, ratio_sum,
+    ratio_sq, ratio_cnt)."""
+    params = c.params
+    ratio_sum = s.ratio_sum + torch.where(expand, row_sum, 0.0)
+    ratio_sq = s.ratio_sq + torch.where(expand, row_sq, 0.0)
     ratio_cnt = s.ratio_cnt + torch.where(
         expand, contrib.sum(dim=1, dtype=torch.int32), 0)
     cnt_f = ratio_cnt.float().clamp_min(1.0)
@@ -624,11 +722,99 @@ def _step(s: BeamState, c: _Consts) -> BeamState:
         params.gamma * (1.0 + params.gamma_beta * r_std),
         params.gamma, params.gamma_max)
     gamma_q = torch.where(expand & (ratio_cnt >= params.gamma_warmup),
-                          gamma_new, gamma_q)
+                          gamma_new, s.gamma_q)
+    return gamma_q, ratio_sum, ratio_sq, ratio_cnt
 
+
+def _on_cpu(s: BeamState) -> bool:
+    return s.done.device.type == "cpu"
+
+
+def _pop(s: BeamState, c: _Consts) -> Popped:
+    """``_pop_plain`` on the CPU; on CUDA ``beam_step.beam_pop``'s kernel,
+    which writes beam_est, done and slack_cnt in place."""
+    if _on_cpu(s):
+        return _pop_plain(s, c)
+    return Popped(s.beam_est, s.done, s.slack_cnt, *beam_step.beam_pop(
+        s.beam_est, s.beam_ids, s.beam_lower, s.res_d, s.gamma_q, s.done,
+        s.slack_cnt, c.params.slack_levels, c.expand_width))
+
+
+def _expand(s: BeamState, c: _Consts, pop: Popped, d_qp_sq) -> Expanded:
+    """``_expand_plain`` on the CPU; on CUDA ``beam_step.beam_expand``'s
+    kernel (which also writes the visited table in place)."""
+    if _on_cpu(s):
+        return _expand_plain(s, c, pop, d_qp_sq)
+    p = c.params
+    return Expanded(*beam_step.beam_expand(
+        c.fused, c.q_u, *(t.squeeze(1) for t in c.coeff), s.res_d,
+        pop.active, pop.expand_e, pop.cur_safe, pop.dot_slack, d_qp_sq,
+        s.visited, r=c.r, bits=c.bits, words=c.words, rw=c.rw,
+        affine_a=p.affine_a, affine_b=p.affine_b, ip_qo_floor=p.ip_qo_floor))
+
+
+def _merge(s: BeamState, c: _Consts, pop: Popped, d_qp_sq, ex: Expanded,
+           exact_rr, next_step) -> Merged:
+    """``_merge_plain`` on the CPU; on CUDA ``beam_step.beam_merge``'s
+    kernel, which writes the results, the beam and last_improve in
+    place."""
+    if _on_cpu(s):
+        return _merge_plain(s, c, pop, d_qp_sq, ex, exact_rr, next_step)
+    ratio, contrib = beam_step.beam_merge(
+        s.res_ids, s.res_d, s.res_step, s.last_improve, pop.beam_est,
+        s.beam_ids, s.beam_lower, s.gamma_q, next_step, pop.active,
+        pop.expand, pop.expand_e, pop.pop_ids, pop.cur_safe, d_qp_sq, *ex,
+        exact_rr)
+    return Merged(s.res_ids, s.res_d, s.res_step, s.last_improve,
+                  pop.beam_est, s.beam_ids, s.beam_lower, ratio, contrib)
+
+
+def _gamma(s: BeamState, c: _Consts, expand, row_sum, row_sq, contrib):
+    """``_gamma_plain`` on the CPU; on CUDA ``beam_step.beam_gamma``'s
+    kernel, which writes gamma_q and the ratio terms in place."""
+    if _on_cpu(s):
+        return _gamma_plain(s, c, expand, row_sum, row_sq, contrib)
+    p = c.params
+    beam_step.beam_gamma(s.ratio_sum, s.ratio_sq, s.ratio_cnt, s.gamma_q,
+                         expand, row_sum, row_sq, contrib, p.gamma,
+                         p.gamma_max, p.gamma_beta, p.gamma_warmup)
+    return s.gamma_q, s.ratio_sum, s.ratio_sq, s.ratio_cnt
+
+
+def _step(s: BeamState, c: _Consts) -> BeamState:
+    """One beam step for the whole batch.  Fixed shapes and no value read
+    on the host, so a chunk of steps can be captured in a CUDA graph.  On
+    CUDA its pop, expansion, merge and gamma update are the kernels of
+    kernels/beam_step.py, which update the state in place; on the CPU
+    their plain versions."""
+    return _segments_step(s, c, _pop, _expand, _merge, _gamma)
+
+
+def _plain_step(s: BeamState, c: _Consts) -> BeamState:
+    """_step from the plain versions of its segments, on any device: the
+    torch step that the kernels are held to."""
+    return _segments_step(s, c, _pop_plain, _expand_plain, _merge_plain,
+                          _gamma_plain)
+
+
+def _segments_step(s: BeamState, c: _Consts, pop_fn, expand_fn, merge_fn,
+                   gamma_fn) -> BeamState:
+    next_step = s.steps + 1
+    pop = pop_fn(s, c)
+    # exact distance to each popped node = d_qp^2
+    d_qp_sq = estimate.exact_l2_sq(c.qpad, c.qnorm, c.raw[pop.cur_safe],
+                                   c.norm_sq[pop.cur_safe])   # (Q, E)
+    ex = expand_fn(s, c, pop, d_qp_sq)
+    rr_vecs = c.raw[ex.rr_node]                               # (Q, rw, P)
+    exact_rr = estimate.exact_l2_sq(c.qpad, c.qnorm, rr_vecs,
+                                    (rr_vecs * rr_vecs).sum(dim=-1))
+    m = merge_fn(s, c, pop, d_qp_sq, ex, exact_rr, next_step)
+    gamma_q, ratio_sum, ratio_sq, ratio_cnt = gamma_fn(
+        s, c, pop.expand, m.ratio.sum(dim=1), (m.ratio * m.ratio).sum(dim=1),
+        m.contrib)
     return BeamState(
-        beam_ids=beam_ids, beam_est=beam_est, beam_lower=beam_lower,
-        res_ids=res_ids, res_d=res_d, visited=visited, gamma_q=gamma_q,
+        beam_ids=m.beam_ids, beam_est=m.beam_est, beam_lower=m.beam_lower,
+        res_ids=m.res_ids, res_d=m.res_d, visited=s.visited, gamma_q=gamma_q,
         ratio_sum=ratio_sum, ratio_sq=ratio_sq, ratio_cnt=ratio_cnt,
-        slack_cnt=slack_cnt, done=done, steps=next_step,
-        last_improve=last_improve, res_step=res_step)
+        slack_cnt=pop.slack_cnt, done=pop.done, steps=next_step,
+        last_improve=m.last_improve, res_step=m.res_step)

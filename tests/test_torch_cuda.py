@@ -677,3 +677,331 @@ def test_graph_capture_failure_raises(cuda_device, monkeypatch):
     monkeypatch.setattr(beam, "_step", syncing)
     with pytest.raises(RuntimeError):
         search()
+
+
+# The beam step's kernels (kernels/beam_step.py) against the plain torch
+# step (search/beam.py's plain segments) on the card: (bits, R, expand_width, visited_hash_bits,
+# rerank_width, k), beam_cap = max(2R, 4k) as Index sets it
+BEAM_CASES = {
+    "1bit-r16-e1-dense-rw0-k10": (1, 16, 1, 0, 0, 10),
+    "1bit-r32-e4-hash-rw0-k10": (1, 32, 4, 13, 0, 10),
+    "1bit-r32-e4-hash-rw8-k100": (1, 32, 4, 13, 8, 100),
+    "2bit-r16-e4-dense-rw8-k10": (2, 16, 4, 0, 8, 10),
+    "2bit-r32-e1-hash-rw0-k100": (2, 32, 1, 13, 0, 100),
+    "4bit-r16-e4-hash-rw8-k100": (4, 16, 4, 13, 8, 100),
+    "4bit-r32-e1-dense-rw0-k10": (4, 32, 1, 0, 0, 10),
+    "4bit-r32-e4-dense-rw0-k100": (4, 32, 4, 0, 0, 100),
+}
+_BEAM_INDEXES: dict = {}
+
+
+def _beam_index(device, bits, r):
+    """A 6000 x 32d graph Index built on the card, one per (bits, R)."""
+    if (bits, r) not in _BEAM_INDEXES:
+        rng = np.random.default_rng(20 + bits + r)
+        centers = rng.standard_normal((24, 32)).astype(np.float32) * 3.0
+        base = centers[rng.integers(0, 24, 6000)] + rng.standard_normal(
+            (6000, 32)).astype(np.float32)
+        queries = base[rng.choice(6000, 96, replace=False)] + 0.05
+        _BEAM_INDEXES[bits, r] = (Index(32, bits=bits, r=r, device=device)
+                                  .build(base).finalize(), queries)
+    return _BEAM_INDEXES[bits, r]
+
+
+def _beam_start(idx, queries, bits, r, ew, hash_bits, rw, k):
+    from cphnsw_tpu_torch.search import beam
+
+    return beam._start(
+        idx._raw, idx._norm_sq, idx._neighbors, idx._entry_candidates,
+        idx._signs, torch.from_numpy(queries).to(idx._raw.device),
+        idx._params, bits, k, max(2 * r, 4 * k), 4, ew, rw, hash_bits)
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit (floats by their bits: -0 and NaN count)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _assert_same_state(a, b, where=""):
+    from cphnsw_tpu_torch.search import beam
+
+    for name in beam.BeamState._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if torch.is_tensor(x):
+            assert _same_bits(x, y), f"{name} differs {where}"
+        else:
+            assert x == y, f"{name} differs {where}"
+
+
+def _after_step(s, pop, merged, gamma, steps):
+    """The state a step leaves from its segments' outputs."""
+    from cphnsw_tpu_torch.search import beam
+
+    return beam.BeamState(
+        beam_ids=merged.beam_ids, beam_est=merged.beam_est,
+        beam_lower=merged.beam_lower, res_ids=merged.res_ids,
+        res_d=merged.res_d, visited=s.visited, gamma_q=gamma[0],
+        ratio_sum=gamma[1], ratio_sq=gamma[2], ratio_cnt=gamma[3],
+        slack_cnt=pop.slack_cnt, done=pop.done, steps=steps,
+        last_improve=merged.last_improve, res_step=merged.res_step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BEAM_CASES))
+def test_beam_segments_equal_plain_segments(cuda_device, case):
+    """Each kernel against its plain version, step by step for 24 steps
+    from the same seeded state: every output of a query that is active
+    bit for bit, the outputs the next segments read for every query, the
+    exact distances between them, the gamma update, and the whole state
+    after each step."""
+    from cphnsw_tpu_torch.ops import estimate
+    from cphnsw_tpu_torch.search import beam
+
+    bits, r, ew, hash_bits, rw, k = BEAM_CASES[case]
+    idx, queries = _beam_index(cuda_device, bits, r)
+    s, c = _beam_start(idx, queries, bits, r, ew, hash_bits, rw, k)
+    t = beam.BeamState(*(x.clone() for x in s))
+    # read on every query; the rest only where the query is active
+    every_row = ("active", "expand", "expand_e", "cur_safe", "done",
+                 "slack_cnt", "beam_est", "cand_ok", "rerank", "rr_node",
+                 "rr_ok")
+
+    def compare(got, want, act, what):
+        for name in want._fields:
+            x, y = getattr(got, name), getattr(want, name)
+            if x is None or y is None:
+                assert x is None and y is None, f"{what} {name}"
+                continue
+            rows = slice(None) if name in every_row else act
+            assert _same_bits(x[rows], y[rows]), f"{what} {name}"
+
+    def exact(rows_of):
+        v = c.raw[rows_of]
+        return estimate.exact_l2_sq(c.qpad, c.qnorm, v, (v * v).sum(dim=-1))
+
+    for step in range(24):
+        _assert_same_state(s, t, f"before step {step}")
+        nxt = s.steps + 1
+        pw, pk = beam._pop_plain(t, c), beam._pop(s, c)
+        act = pw.active
+        compare(pk, pw, act, f"pop, step {step}")
+        dw, dk = (estimate.exact_l2_sq(c.qpad, c.qnorm, c.raw[p.cur_safe],
+                                       c.norm_sq[p.cur_safe])
+                  for p in (pw, pk))
+        assert _same_bits(dk, dw)
+        xw = beam._expand_plain(t, c, pw, dw)
+        xk = beam._expand(s, c, pk, dk)
+        assert _same_bits(s.visited, t.visited), f"visited, step {step}"
+        compare(xk, xw, act, f"expand, step {step}")
+        ew_, ek = exact(xw.rr_node), exact(xk.rr_node)
+        assert _same_bits(ek, ew_)
+        mw = beam._merge_plain(t, c, pw, dw, xw, ew_, nxt)
+        mk = beam._merge(s, c, pk, dk, xk, ek, nxt)
+        compare(mk, mw, slice(None), f"merge, step {step}")
+        sums = [(m.ratio.sum(dim=1), (m.ratio * m.ratio).sum(dim=1))
+                for m in (mw, mk)]
+        assert all(_same_bits(a, b) for a, b in zip(*sums))
+        gw = beam._gamma_plain(t, c, pw.expand, *sums[0], mw.contrib)
+        gk = beam._gamma(s, c, pk.expand, *sums[1], mk.contrib)
+        for name, x, y in zip(("gamma_q", "ratio_sum", "ratio_sq",
+                               "ratio_cnt"), gk, gw):
+            assert _same_bits(x, y), f"gamma {name}, step {step}"
+        t = _after_step(t, pw, mw, gw, nxt)
+        s = _after_step(s, pk, mk, gk, nxt)
+    _assert_same_state(s, t, "after 24 steps")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BEAM_CASES))
+def test_beam_kernels_equal_plain_step(cuda_device, case, monkeypatch):
+    """The search through the kernels against the same search through the
+    plain torch step on the card, with the done flags read every 1 and 8
+    steps: ids, distances, steps and every field of the final state bit
+    for bit; the kernels launched, the plain step launched none."""
+    from cphnsw_tpu_torch.kernels import beam_step
+    from cphnsw_tpu_torch.search import beam
+
+    bits, r, ew, hash_bits, rw, k = BEAM_CASES[case]
+    idx, queries = _beam_index(cuda_device, bits, r)
+    q_dev = torch.from_numpy(queries).to(cuda_device)
+
+    def search():
+        return beam.search_batch(
+            idx._raw, idx._norm_sq, idx._neighbors, idx._entry_candidates,
+            idx._signs, q_dev, idx._params, bits=bits, k=k,
+            beam_cap=max(2 * r, 4 * k), max_steps=300, expand_width=ew,
+            visited_hash_bits=hash_bits, rerank_width=rw, debug_state=True)
+
+    real = beam._step
+    for check in (1, 8):
+        monkeypatch.setattr(beam, "DONE_CHECK_EVERY", check)
+        beam.drop_replays()
+        before = beam_step.merge_launches
+        kernels = search()
+        assert beam_step.merge_launches > before
+        monkeypatch.setattr(beam, "_step", beam._plain_step)
+        beam.drop_replays()
+        before = (beam_step.pop_launches, beam_step.expand_launches,
+                  beam_step.merge_launches, beam_step.gamma_launches)
+        plain = search()
+        assert (beam_step.pop_launches, beam_step.expand_launches,
+                beam_step.merge_launches, beam_step.gamma_launches) == before
+        monkeypatch.setattr(beam, "_step", real)
+        beam.drop_replays()
+        assert _same_bits(kernels[0], plain[0])
+        assert _same_bits(kernels[1], plain[1])
+        _assert_same_state(kernels[2], plain[2], f"(every {check})")
+        assert bool(kernels[2].done.all()) and kernels[2].steps < 300
+
+
+def _index_searches(idx, queries, k, monkeypatch):
+    """Index.search_batch(queries, k) through the kernels and through the
+    plain torch step, and the merge kernel's launches in the first."""
+    from cphnsw_tpu_torch.kernels import beam_step
+    from cphnsw_tpu_torch.search import beam
+
+    real = beam._step
+    beam.drop_replays()
+    before = beam_step.merge_launches
+    kernels = idx.search_batch(queries, k=k)
+    launched = beam_step.merge_launches - before
+    monkeypatch.setattr(beam, "_step", beam._plain_step)
+    beam.drop_replays()
+    plain = idx.search_batch(queries, k=k)
+    monkeypatch.setattr(beam, "_step", real)
+    beam.drop_replays()
+    return kernels, plain, launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [250, 600])
+def test_index_search_at_large_k_equals_plain_step(cuda_device, k,
+                                                   monkeypatch):
+    """Index.search_batch at k = 250 and 600 (beam_cap 1,000 and 2,400:
+    sorts of 1,128 and 2,528 entries a step) through the kernels equals
+    the plain torch step bit for bit, ids and distances."""
+    idx, queries = _beam_index(cuda_device, 1, 32)
+    kernels, plain, launched = _index_searches(idx, queries[:32], k,
+                                               monkeypatch)
+    assert launched > 0
+    assert kernels[0].shape == (32, k)
+    np.testing.assert_array_equal(kernels[0], plain[0])
+    np.testing.assert_array_equal(kernels[1].view(np.int32),
+                                  plain[1].view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim, r", [(32, 128), (5000, 16)],
+                         ids=["r128", "p8192"])
+def test_index_search_at_wide_shapes_equals_plain_step(cuda_device, dim, r,
+                                                       monkeypatch):
+    """Index.search_batch with R = 128 (E*R = 512 candidates a step) and
+    at 5,000 dimensions (P = 8,192: the query's levels take 32 KB)
+    through the kernels equals the plain torch step bit for bit."""
+    rng = np.random.default_rng(dim + r)
+    base = rng.standard_normal((3000, dim)).astype(np.float32)
+    idx = Index(dim, bits=2, r=r, device=cuda_device).build(base).finalize()
+    kernels, plain, launched = _index_searches(
+        idx, base[:24] + 0.05, 10, monkeypatch)
+    assert launched > 0
+    np.testing.assert_array_equal(kernels[0], plain[0])
+    np.testing.assert_array_equal(kernels[1].view(np.int32),
+                                  plain[1].view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["1bit-r32-e4-hash-rw8-k100",
+                                  "4bit-r32-e4-dense-rw0-k100"])
+def test_beam_kernels_from_global_scratch_equal_plain_step(
+        cuda_device, case, monkeypatch):
+    """With no workspace allowed in shared memory, every kernel works from
+    global scratch (the route of a beam or query too large for shared
+    memory): the search equals the plain torch step bit for bit."""
+    from cphnsw_tpu_torch.kernels import beam_step
+    from cphnsw_tpu_torch.search import beam
+
+    bits, r, ew, hash_bits, rw, k = BEAM_CASES[case]
+    idx, queries = _beam_index(cuda_device, bits, r)
+    q_dev = torch.from_numpy(queries).to(cuda_device)
+
+    def search():
+        beam.drop_replays()
+        return beam.search_batch(
+            idx._raw, idx._norm_sq, idx._neighbors, idx._entry_candidates,
+            idx._signs, q_dev, idx._params, bits=bits, k=k,
+            beam_cap=max(2 * r, 4 * k), max_steps=300, expand_width=ew,
+            visited_hash_bits=hash_bits, rerank_width=rw, debug_state=True)
+
+    monkeypatch.setattr(beam_step, "SMEM_PER_BLOCK", 0)
+    plan = beam_step.launch_plan(len(queries), max(2 * r, 4 * k), k, ew, r,
+                                 rw or ew * r, idx._padded, bits,
+                                 idx._neighbors.words)
+    assert all(p.smem == 0 and p.workspace > 0 for p in plan)
+    scratch = search()
+    monkeypatch.setattr(beam, "_step", beam._plain_step)
+    plain = search()
+    assert _same_bits(scratch[0], plain[0])
+    assert _same_bits(scratch[1], plain[1])
+    _assert_same_state(scratch[2], plain[2])
+
+
+@pytest.mark.cuda
+def test_beam_kernels_graphed_equal_eager_and_repeat(cuda_device,
+                                                    monkeypatch):
+    """The kernels replayed from the kept CUDA graph against the same
+    steps launched eagerly, and a second run of each: ids, distances and
+    the final state bit for bit (the hash-visited table at E = 4, and the
+    dense table with the rerank cap)."""
+    from cphnsw_tpu_torch.search import beam
+
+    for bits, r, ew, hash_bits, rw, k in ((1, 32, 4, 13, 0, 10),
+                                          (2, 16, 4, 0, 8, 100)):
+        idx, queries = _beam_index(cuda_device, bits, r)
+        q_dev = torch.from_numpy(queries).to(cuda_device)
+
+        def run():
+            return [beam.search_batch(
+                idx._raw, idx._norm_sq, idx._neighbors,
+                idx._entry_candidates, idx._signs, q_dev, idx._params,
+                bits=bits, k=k, beam_cap=max(2 * r, 4 * k), max_steps=300,
+                expand_width=ew, visited_hash_bits=hash_bits,
+                rerank_width=rw, debug_state=True) for _ in range(2)]
+
+        graphed, eager, captured = _both_routes(monkeypatch, run)
+        assert len(captured) == 2
+        for a in graphed[1:] + eager:
+            assert _same_bits(a[0], graphed[0][0])
+            assert _same_bits(a[1], graphed[0][1])
+            _assert_same_state(a[2], graphed[0][2])
+
+
+@pytest.mark.cuda
+def test_index_and_sharded_index_launch_the_beam_kernels(cuda_device):
+    """Index.search_batch, its step budget (the build) and ShardedIndex's
+    shards go through the four kernels: their launch counts grow."""
+    from cphnsw_tpu_torch import ShardedIndex
+    from cphnsw_tpu_torch.kernels import beam_step
+    from cphnsw_tpu_torch.parallel import sharded
+
+    def counts():
+        return (beam_step.pop_launches, beam_step.expand_launches,
+                beam_step.merge_launches, beam_step.gamma_launches)
+
+    rng = np.random.default_rng(16)
+    base = rng.standard_normal((5000, 32)).astype(np.float32)
+    before = counts()
+    idx = Index(32, bits=1, device=cuda_device).build(base).finalize()
+    built = counts()
+    assert all(b > a for a, b in zip(before, built))
+    idx.search_batch(base[:64] + 0.1, k=10)
+    searched = counts()
+    assert all(b > a for a, b in zip(built, searched))
+    count = torch.cuda.device_count()
+    sh = ShardedIndex(32, bits=1, r=16).build(base, sharded.make_mesh(
+        1, 2, [torch.device("cuda", i % count) for i in range(2)]))
+    sh_built = counts()
+    sh.search_batch(base[:64] + 0.1, k=10)
+    assert all(b > a for a, b in zip(sh_built, counts()))
+    assert all(b > a for a, b in zip(searched, sh_built))
