@@ -80,7 +80,11 @@ Phases, in order; any failed check exits non-zero:
      ms per step of each segment (CUDA events: the kernels and the torch
      segments between them, on each path), each kernel's bound from the
      bytes its active queries need and its roofline share, device ops a
-     step and launches per batch from the profile of phase 8;
+     step and launches per batch from the profile of phase 8; then the
+     same check and timing with every kernel generic
+     (beam_step.GENERIC_ONLY: the first design of the expansion and the
+     merge), so that each Hopper variant's ms stands beside the generic
+     kernel's from the same run;
   9. the sharded scan: ShardedScanIndex(128, bits=1) on the same 1M x 128d
      data over a (1, 4) mesh of cuda:i % device_count (4 shards of
      250,112 rows on one card), shard-native build (seconds per stage),
@@ -379,9 +383,12 @@ def ptxas_report(path):
             name = m.group(1)
             kind = re.search(r"(scan_keys_kernel|beam_pop_kernel"
                              r"|beam_expand_kernel|beam_merge_kernel"
+                             r"|beam_expand_bulk_kernel"
+                             r"|beam_merge_rank_kernel"
                              r"|beam_gamma_kernel|merge_kernel)", name)
             tmpl = re.search(r"ILb([01])ELi(\d+)E", name)
             ws = re.search(r"beam_\w+_kernelILb([01])EE", name)
+            bits = re.search(r"beam_expand_bulk_kernelILi(\d)EE", name)
             report.append(dict(kernel=kind.group(1) if kind else name))
             if tmpl:
                 report[-1].update(fast_cvt=bool(int(tmpl.group(1))),
@@ -389,6 +396,8 @@ def ptxas_report(path):
             if ws:
                 report[-1]["workspace"] = ("shared" if ws.group(1) == "1"
                                            else "global")
+            if bits:
+                report[-1]["bits"] = int(bits.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m and report:
@@ -654,10 +663,14 @@ def profile_graph_batch(g, queries, p50, card):
         t[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     per_step = len(kernels) / max(steps, 1)
+    # a kernel's instances by name: beam_expand_kernel<...> and
+    # beam_expand_bulk_kernel<...> are both beam_expand
     beam_ms = {name: dict(ms=sum(us for e_name, (us, _) in by_name.items()
-                                 if name + "_kernel" in e_name) / 1e3,
+                                 if re.search(name + r"_(\w+_)?kernel",
+                                              e_name)) / 1e3,
                           launches=sum(c for e_name, (_, c) in by_name.items()
-                                       if name + "_kernel" in e_name))
+                                       if re.search(name + r"_(\w+_)?kernel",
+                                                    e_name)))
                for name in ("beam_pop", "beam_expand", "beam_merge",
                             "beam_gamma")}
     log(f"[8] profile of one warm 1M graph batch (Q={len(queries)}): device "
@@ -919,22 +932,36 @@ def beam_launches() -> dict:
                 beam_gamma=beam_step.gamma_launches)
 
 
+def beam_variant_launches() -> dict:
+    return dict(beam_expand=dict(beam_step.expand_variant_launches),
+                beam_merge=dict(beam_step.merge_variant_launches))
+
+
 def zero_beam_launches():
     beam_step.pop_launches = beam_step.expand_launches = \
         beam_step.merge_launches = beam_step.gamma_launches = 0
+    for counts in (beam_step.expand_variant_launches,
+                   beam_step.merge_variant_launches):
+        for variant in counts:
+            counts[variant] = 0
 
 
-def beam_path_launches(path: str, launches: dict) -> dict:
-    """A path's beam kernel launches, read just after its drive (the
-    counters set to 0 just before): fails unless every kernel
-    launched."""
+def beam_path_launches(path: str, launches: dict, variants: dict) -> dict:
+    """A path's beam kernel launches and the expansion's and merge's
+    launches by variant, read just after its drive (the counters set to 0
+    just before): fails unless every kernel launched and the Hopper
+    variants did (every path's shapes fit them)."""
     log(f"  beam kernel launches in the {path} drive (host calls: a graph "
         f"replay launches its captured kernels again): "
-        f"{json.dumps(launches)}")
+        f"{json.dumps(launches)}; by variant {json.dumps(variants)}")
     if min(launches.values()) <= 0:
         fail(f"the {path} drive did not launch every beam kernel: "
              f"{launches}")
-    return launches
+    if variants["beam_expand"]["bulk"] <= 0 or \
+            variants["beam_merge"]["rank"] <= 0:
+        fail(f"the {path} drive did not launch the Hopper variants: "
+             f"{variants}")
+    return dict(launches, variants=variants)
 
 
 def beam_equal_drive(label, start, max_steps, card, clocks=None):
@@ -942,29 +969,34 @@ def beam_equal_drive(label, start, max_steps, card, clocks=None):
     (beam._plain_step) from the state start() seeds (called twice), step
     by step: every state field bit-equal after each of the first
     EQUAL_EACH_STEP steps and at the end (all queries done, or
-    max_steps run), or the run fails.  clocks: a SegmentClock per route,
-    wrapped around the segments (phase 8c).  Returns the comparison and,
-    per step, (queries done before it, active after it, expanding)."""
+    max_steps run), or the run fails.  clocks: a SegmentClock for the
+    kernels' route and, optionally, one for the plain route, wrapped
+    around the segments (phase 8c).  Returns the comparison and, per step,
+    (queries done before it, active after it, expanding)."""
     (sk, ck), (sp, cp) = start(), start()
     real = {fn: getattr(beam, fn) for _, kernel, plain in BEAM_SEGMENTS
             for fn in (kernel, plain)}
-    if clocks is not None:
-        for seg, kernel, plain in BEAM_SEGMENTS:
-            setattr(beam, kernel, clocks["kernels"].wrap(seg, real[kernel]))
-            setattr(beam, plain, clocks["plain"].wrap(seg, real[plain]))
+    clocks = clocks or {}
+    for seg, kernel, plain in BEAM_SEGMENTS:
+        for route, fn in (("kernels", kernel), ("plain", plain)):
+            if route in clocks:
+                setattr(beam, fn, clocks[route].wrap(seg, real[fn]))
+
+    def timed(route, step_fn, s, c):
+        if route in clocks:
+            clocks[route].begin()
+        s = step_fn(s, c)
+        if route in clocks:
+            clocks[route].end()
+        return s
+
     counts, diffs = [], []
     try:
         for step in range(max_steps):
             done_before = int(sk.done.sum())
-            if clocks is not None:
-                clocks["kernels"].begin()
-            sk = beam._step(sk, ck)
-            if clocks is not None:
-                clocks["kernels"].end()
-                clocks["plain"].begin()
-            sp = beam._plain_step(sp, cp)
-            if clocks is not None:
-                clocks["plain"].end()
+            sk = timed("kernels", beam._step, sk, ck)
+            sp = timed("plain", beam._plain_step, sp, cp)
+            if "kernels" in clocks:
                 counts.append((done_before, int((~sk.done).sum()), int(
                     clocks["kernels"].last["pop"].expand.sum())))
             finished = bool(sk.done.all()) and bool(sp.done.all())
@@ -1025,14 +1057,25 @@ def beam_kernel_drive(g, queries, card, prof):
     arguments), with ms per step of each segment on both paths (CUDA
     events, SegmentClock), each kernel's bound from the bytes its active
     queries need (beam_kernel_bytes) and its roofline share; device ops a
-    step and launches per batch from phase 8's profile (prof).  Returns
-    the kernels' entries for the kernels line."""
+    step and launches per batch from phase 8's profile (prof).  Then the
+    same with every kernel generic (beam_step.GENERIC_ONLY: the first
+    design of the expansion and the merge), held to the plain step and
+    timed alike.  Returns the kernels' entries for the kernels line."""
     q_dev = torch.from_numpy(queries).cuda()
     k, r, ew = K, g._r, g._expand_width
     hash_bits = g._visited_hash_bits()
+    start = index_beam_start(g, q_dev, k)
     clocks = {route: SegmentClock(c) for route, c in SEGMENT_SLEEP.items()}
-    res, counts = beam_equal_drive("8c", index_beam_start(g, q_dev, k),
-                                   g._max_steps(k), card, clocks)
+    res, counts = beam_equal_drive("8c", start, g._max_steps(k), card,
+                                   clocks)
+    clocks["generic"] = SegmentClock(SEGMENT_SLEEP["kernels"])
+    beam_step.GENERIC_ONLY = True
+    try:
+        res["generic"], _ = beam_equal_drive(
+            "8c generic", start, g._max_steps(k), card,
+            {"kernels": clocks["generic"]})
+    finally:
+        beam_step.GENERIC_ONLY = False
     steps = len(counts)
     seg = {route: clock.segment_ms() for route, clock in clocks.items()}
     mean = {route: {name: statistics.fmean(t[name] for t in times)
@@ -1046,7 +1089,7 @@ def beam_kernel_drive(g, queries, card, prof):
                segment_ms_per_step=mean,
                step_ms={route: sum(m.values()) for route, m in mean.items()},
                device_ops_per_step=prof["device_ops_per_step"])
-    for route in ("kernels", "plain"):
+    for route in ("kernels", "generic", "plain"):
         log(f"  {route}: ms per step " + ", ".join(
             f"{name} {ms:.4f}" for name, ms in mean[route].items())
             + f"; step {res['step_ms'][route]:.4f} ms (device time of the "
@@ -1060,24 +1103,29 @@ def beam_kernel_drive(g, queries, card, prof):
         nbytes = statistics.fmean(b[name] for b in per_step)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ms, plain_ms = mean["kernels"][segment], mean["plain"][segment]
+        generic_ms = mean["generic"][segment]
         profiled = prof["beam"][name]
         entries.append(dict(
             name=name, route="cuda",
             source="cphnsw_tpu_torch/csrc/beam_step.cu",
             replaces="cphnsw_tpu/search/beam.py:244",
-            max_abs_err=res["max_abs_err"],
+            max_abs_err=max(res["max_abs_err"],
+                            res["generic"]["max_abs_err"]),
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
             library_ms=None, roofline_share=bound_ms / ms,
+            generic_ms=generic_ms,
+            generic_roofline_share=bound_ms / generic_ms,
             bytes_per_launch=nbytes,
             launches_per_batch=profiled["launches"],
             profiled_ms_per_launch=profiled["ms"] / max(
                 profiled["launches"], 1)))
-        log(f"  {name}: {ms:.4f} ms per launch (mean of {steps} steps), "
-            f"plain segment {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        log(f"  {name}: {ms:.4f} ms per launch (mean of {steps} steps; "
+            f"generic kernels {generic_ms:.4f} ms), plain segment "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
             f"({nbytes / 1e6:.3f} MB a step, bytes), roofline share "
-            f"{bound_ms / ms:.4f}; profiled batch {profiled['launches']} "
-            f"launches at {entries[-1]['profiled_ms_per_launch']:.4f} ms "
-            f"[{card}]")
+            f"{bound_ms / ms:.4f} (generic {bound_ms / generic_ms:.4f}); "
+            f"profiled batch {profiled['launches']} launches at "
+            f"{entries[-1]['profiled_ms_per_launch']:.4f} ms [{card}]")
     if min(p["launches"] for p in prof["beam"].values()) <= 0:
         fail(f"the profiled graph batch ran no beam kernel: {prof['beam']}")
     return entries, res
@@ -1668,10 +1716,11 @@ def rerank_width_drive(g, queries, card):
 
         zero_beam_launches()
         ms = median_ms(search)
-        launches = beam_launches()
+        launches, variants = beam_launches(), beam_variant_launches()
         ids, d, state = out
         runs[width] = (ids.cpu().numpy(), d.cpu().numpy(), state.steps, ms)
-    launches = beam_path_launches(f"rerank_width={RERANK_WIDTH}", launches)
+    launches = beam_path_launches(f"rerank_width={RERANK_WIDTH}", launches,
+                                  variants)
     (ids0, _, s0, ms0), (ids8, d8, s8, ms8) = runs[0], runs[RERANK_WIDTH]
     over = float((ids8[:, :, None] == ids0[:, None, :]).any(-1).mean())
     raw = g._raw.cpu().numpy()
@@ -2295,8 +2344,8 @@ def main():
     zero_beam_launches()
     gidx, gq, _, gp50 = graph_drive("graph 1M x 128d 1-bit", data, 1, card)
     graph_launches = scan_keys.launches
-    beam_by_path = dict(graph=beam_path_launches("1M graph",
-                                                 beam_launches()))
+    beam_by_path = dict(graph=beam_path_launches(
+        "1M graph", beam_launches(), beam_variant_launches()))
     log(f"  scan_keys launches in the graph drive: {graph_launches}")
     phases["nndescent"] = nndescent_drive(card)
 
@@ -2306,8 +2355,8 @@ def main():
     zero_beam_launches()
     sidx, sq, sids, _ = graph_drive("graph 100k x 128d 4-bit", small, 4,
                                     card)
-    beam_by_path["graph_4bit"] = beam_path_launches("100k 4-bit graph",
-                                                    beam_launches())
+    beam_by_path["graph_4bit"] = beam_path_launches(
+        "100k 4-bit graph", beam_launches(), beam_variant_launches())
     log(f"  scan_keys launches in the graph drive: {scan_keys.launches}")
     phases["beam_kernels_4bit"], _ = beam_equal_drive(
         "7", index_beam_start(sidx._index, torch.from_numpy(sq).cuda(), K),
@@ -2365,8 +2414,8 @@ def main():
     gsh, gq, _ = sharded_graph_drive("sharded graph 1M x 128d 1-bit", data,
                                      1, mesh, card)
     g_launches = scan_keys.launches
-    beam_by_path["sharded_graph"] = beam_path_launches("1M sharded graph",
-                                                       beam_launches())
+    beam_by_path["sharded_graph"] = beam_path_launches(
+        "1M sharded graph", beam_launches(), beam_variant_launches())
     log(f"  scan_keys launches in the sharded graph drive: {g_launches}")
     phases["beam_kernels_shard"], _ = beam_equal_drive(
         "10", shard_beam_start(gsh, gq, K), gsh._max_steps(K), card)
@@ -2436,9 +2485,13 @@ def main():
             entry, launches=beam_by_path["graph"][name],
             launches_by_path={path: n[name]
                               for path, n in beam_by_path.items()},
+            **({"launches_by_variant": {
+                path: n["variants"][name]
+                for path, n in beam_by_path.items()}}
+               if name in beam_by_path["graph"]["variants"] else {}),
             build_s=beam_build_s,
             ptxas=[r for r in beam_ptxas
-                   if r["kernel"] == entry["name"] + "_kernel"]))
+                   if r["kernel"].startswith(name + "_")]))
     phases["fma_f32"] = fma
     log(f"phases 2 (fma_f32), 5a-5f, 6b, 7, 7f, 8b, 8c, 9c, 9d, 10, 10b, "
         f"10c: "

@@ -22,12 +22,18 @@ in place, and a query that is done returns at once; where a query is not
 active they write what the next segments read (no node to expand, node 0
 to rerank, the gamma terms 0).
 
-``launch_plan`` is each launch's shape in plain Python: threads per
-block, and the bytes of each block's workspace, kept in dynamic shared
-memory where it fits (``SMEM_PER_BLOCK``) and else in a global scratch
-buffer of one slice per query.  The CUDA source is compiled with ``nvcc``
-at first use into ``build/cphnsw_tpu_torch/`` (``kernels/nvcc.py``) and
-loaded with ctypes.
+``launch_plan`` is each launch's shape in plain Python: the kernel's
+variant, threads per block, and the bytes of each block's workspace, kept
+in dynamic shared memory where it fits (``SMEM_PER_BLOCK``) and else in a
+global scratch buffer of one slice per query.  The expansion and the merge
+have two variants each.  The Hopper ones ("bulk": rows by bulk copy,
+popcount fastscan, warp matches; "rank": warp sorts merged by rank) work
+in shared memory, one thread an entry, and take E*R up to 1,024 and the
+merge's sorts up to 768 entries; the generic ones (bitonic sorts, a
+candidate loop) take every other shape, also from global scratch.  The
+plan chooses by shape, never on error.  The CUDA source is compiled with
+``nvcc`` at first use into ``build/cphnsw_tpu_torch/``
+(``kernels/nvcc.py``) and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -53,6 +59,17 @@ MAX_BITS = 4
 SMEM_PER_BLOCK = 231_424
 # threads per block of the gamma update (one warp per query)
 GAMMA_THREADS = 256
+# Entries a Hopper variant takes, one a thread: the threads its launch
+# bounds allow (csrc/beam_step.cu).
+MAX_BLOCK = {"bulk": 1024, "rank": 768}
+# ints of a Hopper sort's per-warp counts (block_rank: 3 x 32 warps)
+RANK_COUNTS = 96
+# True: every plan names the generic kernels, which take every shape (so
+# that both variants can be held to the plain step and timed side by
+# side at one shape).
+GENERIC_ONLY = False
+# the variant argument of the C launchers
+_VARIANT_IDS = {"generic": 0, "bulk": 1, "rank": 1}
 
 # Launches of each kernel (host calls that launch it, captured ones
 # included: a CUDA graph's replays launch it again without a call); the
@@ -61,6 +78,10 @@ pop_launches = 0
 expand_launches = 0
 merge_launches = 0
 gamma_launches = 0
+# the launches of the expansion and the merge by variant (in the totals
+# above too)
+expand_variant_launches = {"bulk": 0, "generic": 0}
+merge_variant_launches = {"rank": 0, "generic": 0}
 
 
 class Plan(NamedTuple):
@@ -68,6 +89,7 @@ class Plan(NamedTuple):
     workspace: int    # bytes per block
     smem: int         # dynamic shared bytes: the workspace, or 0 when it
                       # lives in global scratch
+    variant: str = "generic"   # "bulk" / "rank": the Hopper variants
 
 
 class LaunchPlan(NamedTuple):
@@ -91,6 +113,17 @@ def _plan(threads: int, workspace: int) -> Plan:
                 workspace if workspace <= SMEM_PER_BLOCK else 0)
 
 
+def _hopper(variant: str, entries: int, workspace: int) -> Plan | None:
+    """A Hopper variant's plan (one thread an entry, in warps; the
+    workspace in shared memory), or None where it does not hold the
+    shape."""
+    threads = 32 * -(-entries // 32)
+    if GENERIC_ONLY or threads > MAX_BLOCK[variant] or \
+            workspace > SMEM_PER_BLOCK:
+        return None
+    return Plan(threads, workspace, workspace, variant)
+
+
 def _refuse(checks):
     for ok, why in checks:
         if not ok:
@@ -107,11 +140,15 @@ def pop_plan(q: int, beam_cap: int, expand_width: int) -> Plan:
 
 
 def expand_plan(q: int, expand_width: int, r: int, rw: int, p: int,
-                bits: int, words: int) -> Plan:
+                bits: int, words: int, rows_aligned: bool = True) -> Plan:
     """The expansion's launch: the query's levels and E*R candidates per
     query, and a sort of them when rw < E*R.  P is refused where the plain
     step's float32 fastscan sums would lose exactness
-    (``estimate.fastscan_sums``)."""
+    (``estimate.fastscan_sums``).  "bulk" where its workspace fits in
+    shared memory (the popped rows' used spans, the query's level planes,
+    two tables of 2 E*R slots, and the sort's runs, ranks and counts when
+    rw < E*R) and the rows are 16-byte aligned (rows_aligned: the fused
+    store's base and row stride), else "generic"."""
     er = expand_width * r
     _refuse(((q >= 1, f"q = {q}: no query to launch"),
              (expand_width >= 1 and r >= 1,
@@ -122,6 +159,15 @@ def expand_plan(q: int, expand_width: int, r: int, rw: int, p: int,
               f"P = {p} in {words} words"),
              (LUT_LEVELS * LUT_LEVELS * p < F32_EXACT_INT,
               f"P = {p}: the plain step's fastscan sums would exceed 2^24")))
+    threads = 32 * -(-er // 32)
+    runs = threads if rw < er else 0
+    row_words = -(-(5 + bits * words) * r // 4) * 4
+    bulk = rows_aligned and _hopper("bulk", er, _carve(
+        (1, 8), (expand_width * row_words, 4), (words * 4, 4),
+        *[(_pow2(2 * er), 4)] * 4, (runs, 8), (runs, 4),
+        (RANK_COUNTS if runs else 0, 4)))
+    if bulk:
+        return bulk
     sort = _pow2(er) if rw < er else 0
     return _plan(128 if er <= 128 else 256,
                  _carve((sort, 8), (p, 4), *[(er, 4)] * 5, (er, 1), (er, 1)))
@@ -130,7 +176,11 @@ def expand_plan(q: int, expand_width: int, r: int, rw: int, p: int,
 def merge_plan(q: int, beam_cap: int, k: int, expand_width: int, r: int,
                rw: int) -> Plan:
     """The merge's launch: a sort of k + rw + E results and pushes and one
-    of beam_cap + E*R beam entries per query."""
+    of beam_cap + E*R beam entries per query.  "rank" where both sorts
+    have at most MAX_BLOCK["rank"] entries and its workspace fits in
+    shared memory (a run entry and a rank a thread, the per-warp counts,
+    the old results' distances, a set of 2 k slots, the enqueue values),
+    else "generic"."""
     er = expand_width * r
     _refuse(((q >= 1, f"q = {q}: no query to launch"),
              (k >= 1, f"k = {k}"),
@@ -138,6 +188,12 @@ def merge_plan(q: int, beam_cap: int, k: int, expand_width: int, r: int,
               f"E = {expand_width}, R = {r}, beam_cap {beam_cap}"),
              (1 <= rw <= er, f"rerank width {rw} outside 1..{er}")))
     m, nb = k + rw + expand_width, beam_cap + er
+    threads = 32 * -(-max(m, nb) // 32)
+    rank = _hopper("rank", max(m, nb), _carve(
+        (threads, 8), (threads, 4), (RANK_COUNTS, 4), (k, 4),
+        (_pow2(2 * k), 4), (er, 4)))
+    if rank:
+        return rank
     return _plan(256, _carve((_pow2(m), 8), (_pow2(nb), 8), *[(m, 4)] * 3,
                              *[(nb, 4)] * 3, (er, 4)))
 
@@ -145,8 +201,9 @@ def merge_plan(q: int, beam_cap: int, k: int, expand_width: int, r: int,
 def launch_plan(q: int, beam_cap: int, k: int, expand_width: int, r: int,
                 rw: int, p: int, bits: int, words: int) -> LaunchPlan:
     """The pop, expand and merge launches for a batch of q queries (one
-    block each), or ValueError for a shape the kernels refuse.  The gamma
-    update takes any shape: GAMMA_THREADS, a warp per query."""
+    block each; the fused rows 16-byte aligned, as the index stores
+    them), or ValueError for a shape the kernels refuse.  The gamma update
+    takes any shape: GAMMA_THREADS, a warp per query."""
     if k < 1:
         raise ValueError(f"beam_step kernels: k = {k}")
     return LaunchPlan(pop_plan(q, beam_cap, expand_width),
@@ -172,10 +229,10 @@ def load_library(path: Path | None = None) -> ctypes.CDLL:
     lib = nvcc.load(build_library()[0] if path is None else path)
     lib.beam_pop_launch.argtypes = [_P] * 14 + [_I] * 7 + [_P, _L, _P]
     lib.beam_expand_launch.argtypes = (
-        [_P, _L] + [_P] * 20 + [_I] * 9 + [_L] + [_F] * 7 + [_I] * 2
+        [_P, _L] + [_P] * 20 + [_I] * 9 + [_L] + [_F] * 7 + [_I] * 3
         + [_P, _L, _P])
     lib.beam_merge_launch.argtypes = [_P] * 27 + [_I] * 6 + [_F] + \
-        [_I] * 2 + [_P, _L, _P]
+        [_I] * 3 + [_P, _L, _P]
     lib.beam_gamma_launch.argtypes = [_P] * 8 + [_I] * 2 + [_F] * 3 + \
         [_I] * 2 + [_P]
     for fn in (lib.beam_pop_launch, lib.beam_expand_launch,
@@ -288,7 +345,8 @@ def beam_expand(fused, q_u, coeff_a, coeff_b, coeff_c, res_d, active,
     q, p = q_u.shape
     k, ew = res_d.shape[1], cur_safe.shape[1]
     er = ew * r
-    plan = expand_plan(q, ew, r, rw, p, bits, words)
+    plan = expand_plan(q, ew, r, rw, p, bits, words,
+                       fused.data_ptr() % 16 == 0 and fused.shape[1] % 4 == 0)
     _scalars(affine_a, affine_b, ip_qo_floor)
     slots = visited.shape[1] - 1
     if visited.dtype == torch.int32:
@@ -343,9 +401,10 @@ def beam_expand(fused, q_u, coeff_a, coeff_b, coeff_c, res_d, active,
                    lower, cand_ok, rerank, rr_node, rr_ok, est_rr, rr_slots),
             q, k, ew, r, words, bits, p, rw, h_size, rows, float(affine_a),
             float(affine_b), float(ip_qo_floor), EPS_MEDIUM, EPS_SMALL,
-            1.0 / k_scale, 1.0 / msb_scale, plan.threads, plan.smem,
-            *_ptrs(scratch), ws, _stream(dev)))
+            1.0 / k_scale, 1.0 / msb_scale, _VARIANT_IDS[plan.variant],
+            plan.threads, plan.smem, *_ptrs(scratch), ws, _stream(dev)))
     expand_launches += 1
+    expand_variant_launches[plan.variant] += 1
     return (nbr_ids, est, lower, cand_ok, rerank, rr_slots, rr_node, rr_ok,
             est_rr)
 
@@ -406,9 +465,10 @@ def beam_merge(res_ids, res_d, res_step, last_improve, beam_est, beam_ids,
                    expand_e, pop_ids, cur_safe, d_qp_sq, nbr_ids, est, lower,
                    cand_ok, rerank, rr_node, rr_ok, est_rr, rr_slots,
                    exact_rr, ratio, contrib),
-            q, beam_cap, k, ew, er, rw, EPS_SMALL, plan.threads, plan.smem,
-            *_ptrs(scratch), ws, _stream(dev)))
+            q, beam_cap, k, ew, er, rw, EPS_SMALL, _VARIANT_IDS[plan.variant],
+            plan.threads, plan.smem, *_ptrs(scratch), ws, _stream(dev)))
     merge_launches += 1
+    merge_variant_launches[plan.variant] += 1
     return ratio, contrib
 
 

@@ -200,43 +200,145 @@ def test_expand_estimates_match_jax(indexes, data, bits):
 # k = 100, a graph shard's (E = 1) at k 10 and 100, the 7f rerank cap,
 # 1536d's P, and (past the limits an earlier plan had) k = 250 and 2,500,
 # R = 128 and P = 65,536: (pop, expand, merge) as (threads, workspace
-# bytes, dynamic shared bytes), 0 shared bytes where the workspace lives
-# in global scratch
+# bytes, dynamic shared bytes, variant), 0 shared bytes where the
+# workspace lives in global scratch; first as planned, then with every
+# kernel generic (beam_step.GENERIC_ONLY)
 PLAN_SHAPES = {
     "cell": ((1024, 64, 10, 4, 32, 128, 128, 1, 4),
-             ((128, 512, 512), (128, 3328, 3328), (256, 8640, 8640))),
+             ((128, 512, 512, "generic"), (128, 8784, 8784, "bulk"),
+              (192, 3376, 3376, "rank")),
+             ((128, 3328, 3328), (256, 8640, 8640))),
     "k100": ((1024, 400, 100, 4, 32, 128, 128, 1, 4),
-             ((128, 4096, 4096), (128, 3328, 3328), (256, 19872, 19872))),
+             ((128, 4096, 4096, "generic"), (128, 8784, 8784, "bulk"),
+              (544, 8848, 8848, "rank")),
+             ((128, 3328, 3328), (256, 19872, 19872))),
     "shard-k10": ((1024, 128, 10, 1, 32, 32, 128, 1, 4),
-                  ((128, 1024, 1024), (128, 1216, 1216), (256, 5136, 5136))),
+                  ((128, 1024, 1024, "generic"), (32, 2256, 2256, "bulk"),
+                   (160, 2608, 2608, "rank")),
+                  ((128, 1216, 1216), (256, 5136, 5136))),
     "shard-k100": ((128, 400, 100, 1, 32, 32, 128, 4, 4),
-                   ((128, 4096, 4096), (128, 1216, 1216),
-                    (256, 13088, 13088))),
+                   ((128, 4096, 4096, "generic"), (32, 3792, 3792, "bulk"),
+                    (448, 7312, 7312, "rank")),
+                   ((128, 1216, 1216), (256, 13088, 13088))),
     "rerank8": ((1024, 64, 10, 4, 32, 8, 128, 1, 4),
-                ((128, 512, 512), (128, 4352, 4352), (256, 5408, 5408))),
+                ((128, 512, 512, "generic"), (128, 10704, 10704, "bulk"),
+                 (192, 3376, 3376, "rank")),
+                ((128, 4352, 4352), (256, 5408, 5408))),
     "p2048-e4-r64": ((512, 128, 10, 4, 64, 256, 2048, 2, 64),
-                     ((128, 1024, 1024), (256, 13824, 13824),
-                      (256, 17088, 17088))),
+                     ((128, 1024, 1024, "generic"),
+                      (256, 145424, 145424, "bulk"),
+                      (384, 6192, 6192, "rank")),
+                     ((256, 13824, 13824), (256, 17088, 17088))),
     "k250": ((1024, 1000, 250, 4, 32, 128, 128, 1, 4),
-             ((128, 8192, 8192), (128, 3328, 3328), (256, 39136, 39136))),
+             ((128, 8192, 8192, "generic"), (128, 8784, 8784, "bulk"),
+              (256, 39136, 39136, "generic")),
+             ((128, 3328, 3328), (256, 39136, 39136))),
     "k2500": ((64, 10000, 2500, 4, 32, 128, 128, 1, 4),
-              ((128, 131072, 131072), (128, 3328, 3328), (256, 317472, 0))),
+              ((128, 131072, 131072, "generic"), (128, 8784, 8784, "bulk"),
+               (256, 317472, 0, "generic")),
+              ((128, 3328, 3328), (256, 317472, 0))),
     "r128-rw8": ((64, 256, 10, 4, 128, 8, 128, 2, 4),
-                 ((128, 2048, 2048), (256, 15872, 15872),
-                  (256, 20000, 20000))),
+                 ((128, 2048, 2048, "generic"), (512, 49616, 49616, "bulk"),
+                  (768, 11824, 11824, "rank")),
+                 ((256, 15872, 15872), (256, 20000, 20000))),
     "p65536": ((16, 64, 10, 4, 32, 128, 65536, 1, 2048),
-               ((128, 512, 512), (128, 264960, 0), (256, 8640, 8640))),
+               ((128, 512, 512, "generic"), (128, 264960, 0, "generic"),
+                (192, 3376, 3376, "rank")),
+               ((128, 264960, 0), (256, 8640, 8640))),
 }
 
 
 @pytest.mark.parametrize("shape", list(PLAN_SHAPES))
 def test_launch_plan_at_the_paths_shapes(shape):
-    args, want = PLAN_SHAPES[shape]
+    args, want, _ = PLAN_SHAPES[shape]
     plan = beam_step.launch_plan(*args)
     assert tuple(tuple(p) for p in plan) == want
     for p in plan:
         assert p.smem == (p.workspace if p.workspace <=
                           beam_step.SMEM_PER_BLOCK else 0)
+
+
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_generic_only_plans_the_generic_kernels(shape, monkeypatch):
+    """With GENERIC_ONLY every kernel is the generic one, planned as
+    before the Hopper variants (which pop always is)."""
+    args, want, generic = PLAN_SHAPES[shape]
+    monkeypatch.setattr(beam_step, "GENERIC_ONLY", True)
+    plan = beam_step.launch_plan(*args)
+    assert tuple(plan.pop) == want[0]
+    assert tuple(tuple(p) for p in plan[1:]) == tuple(
+        g + ("generic",) for g in generic)
+
+
+# (q, beam_cap, k, E, R, rw, P, bits, words): the variant of the expansion
+# and the merge, with E*R not a multiple of 32 (R = 24, E = 3; R = 5), the
+# shard's E = 1, rw < E*R, 1 to 4 bits, and the largest Hopper shapes
+VARIANT_SHAPES = {
+    "r24-e3": ((64, 48, 10, 3, 24, 72, 128, 2, 4), "bulk", "rank", 96, 128),
+    "r24-e3-rw8": ((64, 48, 10, 3, 24, 8, 128, 4, 4), "bulk", "rank", 96,
+                   128),
+    "r5-e1-p40": ((64, 16, 10, 1, 5, 5, 40, 3, 2), "bulk", "rank", 32, 32),
+    "e1-dense-k100": ((64, 400, 100, 1, 32, 32, 128, 1, 4), "bulk", "rank",
+                      32, 448),
+    "er1024": ((64, 64, 10, 8, 128, 1024, 128, 1, 4), "bulk", "generic",
+               1024, 256),
+    "er1056": ((64, 64, 10, 33, 32, 1056, 128, 1, 4), "generic", "generic",
+               256, 256),
+    "beam768": ((64, 640, 10, 4, 32, 128, 128, 1, 4), "bulk", "rank", 128,
+                768),
+    "beam769": ((64, 641, 10, 4, 32, 128, 128, 1, 4), "bulk", "generic",
+                128, 256),
+    "res1056": ((64, 200, 900, 4, 32, 128, 128, 1, 4), "bulk", "generic",
+                128, 256),
+}
+
+
+@pytest.mark.parametrize("shape", list(VARIANT_SHAPES))
+def test_launch_plan_chooses_the_variant_by_shape(shape):
+    """The Hopper variants take a shape where one thread an entry fits a
+    block (E*R within 1,024 and both merge sorts within 768, in whole
+    warps: the kernels' launch bounds) and the workspace fits in shared
+    memory; the generic kernels take the rest."""
+    args, expand, merge, expand_threads, merge_threads = VARIANT_SHAPES[shape]
+    plan = beam_step.launch_plan(*args)
+    q, beam_cap, k, ew, r, rw, p, bits, words = args
+    er = ew * r
+    assert (plan.expand.variant, plan.merge.variant) == (expand, merge)
+    assert (plan.expand.threads, plan.merge.threads) == (expand_threads,
+                                                         merge_threads)
+    if expand == "bulk":
+        # the popped rows' used spans (16-byte multiples) alone
+        row = -(-(5 + bits * words) * r // 4) * 16
+        assert plan.expand.workspace >= ew * row + 16 * words
+        assert plan.expand.threads >= er and plan.expand.threads % 32 == 0
+        assert plan.expand.smem == plan.expand.workspace
+    if merge == "rank":
+        entries = max(k + rw + ew, beam_cap + er)
+        assert entries <= plan.merge.threads < entries + 32
+        assert plan.merge.workspace >= 12 * plan.merge.threads + 4 * (k + er)
+        assert plan.merge.smem == plan.merge.workspace
+
+
+def test_launch_plan_takes_generic_where_shared_memory_is_short(
+        monkeypatch):
+    """A Hopper variant runs from shared memory only: below its workspace
+    the plan names the generic kernel, which works from global scratch;
+    rows that are not 16-byte aligned (no bulk copy) take it too."""
+    args = PLAN_SHAPES["cell"][0]
+    plan = beam_step.launch_plan(*args)
+    monkeypatch.setattr(beam_step, "SMEM_PER_BLOCK",
+                        min(plan.expand.workspace, plan.merge.workspace) - 1)
+    small = beam_step.launch_plan(*args)
+    assert (small.expand.variant, small.merge.variant) == ("generic",
+                                                          "generic")
+    assert small.expand.workspace < plan.expand.workspace
+    monkeypatch.setattr(beam_step, "SMEM_PER_BLOCK", 0)
+    assert all(p.smem == 0 and p.variant == "generic"
+               for p in beam_step.launch_plan(*args))
+    monkeypatch.undo()
+    q, beam_cap, k, ew, r, rw, p, bits, words = args
+    assert beam_step.expand_plan(q, ew, r, rw, p, bits, words,
+                                 rows_aligned=False).variant == "generic"
 
 
 @pytest.mark.parametrize("args", [
@@ -248,12 +350,19 @@ def test_launch_plan_at_the_paths_shapes(shape):
 def test_launch_plan_takes_the_shapes_past_the_old_limits(args):
     """Shapes an earlier plan refused (E*R above 256, sorts above 1,024,
     P above 4,096) that Index and the plain step take: each launch gets a
-    workspace that holds its sorts, in shared memory or global scratch."""
+    workspace that holds its sorts, in shared memory or global scratch
+    (the generic merge: both sorts' entries and their values; the rank
+    merge: a run entry and a rank a thread, one thread an entry of the
+    larger sort)."""
     plan = beam_step.launch_plan(*args)
     q, beam_cap, k, ew, r, rw, p = args[:7]
     assert plan.pop.workspace >= 8 * beam_cap
     assert plan.expand.workspace >= 4 * p + 22 * ew * r
-    assert plan.merge.workspace >= 20 * (k + rw + ew + beam_cap + ew * r)
+    if plan.merge.variant == "rank":
+        assert plan.merge.threads >= max(k + rw + ew, beam_cap + ew * r)
+        assert plan.merge.workspace >= 12 * plan.merge.threads
+    else:
+        assert plan.merge.workspace >= 20 * (k + rw + ew + beam_cap + ew * r)
 
 
 @pytest.mark.parametrize("args", [

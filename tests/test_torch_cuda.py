@@ -856,6 +856,101 @@ def test_beam_kernels_equal_plain_step(cuda_device, case, monkeypatch):
         assert bool(kernels[2].done.all()) and kernels[2].steps < 300
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BEAM_CASES))
+def test_generic_beam_segments_equal_plain_segments(cuda_device, case,
+                                                    monkeypatch):
+    """test_beam_segments_equal_plain_segments with every kernel generic
+    (beam_step.GENERIC_ONLY): the kernels that take every shape, at the
+    shapes where the plan now names the Hopper variants."""
+    from cphnsw_tpu_torch.kernels import beam_step
+
+    monkeypatch.setattr(beam_step, "GENERIC_ONLY", True)
+    before = dict(beam_step.expand_variant_launches)
+    test_beam_segments_equal_plain_segments(cuda_device, case)
+    assert beam_step.expand_variant_launches["generic"] > before["generic"]
+    assert beam_step.expand_variant_launches["bulk"] == before["bulk"]
+
+
+# Step-by-step cases for both variants: (bits, R, expand_width,
+# visited_hash_bits, rerank_width, k, beam_cap or 0 for max(2R, 4k),
+# scrambled): E*R not a multiple of 32 (R = 24, E = 3), a graph shard's
+# E = 1 with dense visited and beam_cap 128, rw < E*R, 1, 2 and 4 bits,
+# and seeded states whose beam and results are shuffled per query with a
+# quarter of the beam set to FLOAT_MAX holes (no order of the state is
+# taken on trust)
+EACH_STEP_CASES = {
+    "2bit-r24-e3-hash-rw0-k10": (2, 24, 3, 13, 0, 10, 0, False),
+    "4bit-r24-e3-dense-rw8-k10": (4, 24, 3, 0, 8, 10, 0, False),
+    "1bit-r32-e1-dense-rw0-k10-shard": (1, 32, 1, 0, 0, 10, 128, False),
+    "1bit-r32-e4-hash-rw8-k10-holes": (1, 32, 4, 13, 8, 10, 0, True),
+    "2bit-r16-e4-dense-rw0-k100-holes": (2, 16, 4, 0, 0, 100, 0, True),
+    "4bit-r16-e1-hash-rw8-k10-holes": (4, 16, 1, 13, 8, 10, 0, True),
+}
+
+
+def _scrambled(s, seed):
+    """s with each query's beam and results in a random order and a
+    quarter of its beam entries emptied (FLOAT_MAX)."""
+    from cphnsw_tpu_torch.search import beam
+
+    g = torch.Generator().manual_seed(seed)
+    q, b = s.beam_est.shape
+    k = s.res_d.shape[1]
+    dev = s.beam_est.device
+    pb = torch.stack([torch.randperm(b, generator=g) for _ in range(q)])
+    pk = torch.stack([torch.randperm(k, generator=g) for _ in range(q)])
+    holes = (torch.rand((q, b), generator=g) < 0.25).to(dev)
+    pb, pk = pb.to(dev), pk.to(dev)
+    return s._replace(
+        beam_est=torch.where(holes, beam.FLOAT_MAX, s.beam_est.gather(1, pb)),
+        beam_ids=s.beam_ids.gather(1, pb),
+        beam_lower=s.beam_lower.gather(1, pb),
+        res_ids=s.res_ids.gather(1, pk), res_d=s.res_d.gather(1, pk),
+        res_step=s.res_step.gather(1, pk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["hopper", "generic"])
+@pytest.mark.parametrize("case", list(EACH_STEP_CASES))
+def test_beam_variants_equal_plain_step_each_step(cuda_device, case,
+                                                  variant, monkeypatch):
+    """beam._step through each variant of the expansion and the merge
+    against beam._plain_step from the same state: every field bit-equal
+    after every step until every query is done; the variant the plan
+    names is the one that launched."""
+    from cphnsw_tpu_torch.kernels import beam_step
+    from cphnsw_tpu_torch.search import beam
+
+    bits, r, ew, hash_bits, rw, k, cap, scramble = EACH_STEP_CASES[case]
+    monkeypatch.setattr(beam_step, "GENERIC_ONLY", variant == "generic")
+    idx, queries = _beam_index(cuda_device, bits, r)
+    s, c = beam._start(
+        idx._raw, idx._norm_sq, idx._neighbors, idx._entry_candidates,
+        idx._signs, torch.from_numpy(queries).to(cuda_device), idx._params,
+        bits, k, cap or max(2 * r, 4 * k), 4, ew, rw, hash_bits)
+    if scramble:
+        s = _scrambled(s, 7 + bits + r)
+    plan = beam_step.launch_plan(len(queries), s.beam_est.shape[1], k, ew, r,
+                                 c.rw, idx._padded, bits, c.words)
+    want = (("bulk", "rank") if variant == "hopper"
+            else ("generic", "generic"))
+    assert (plan.expand.variant, plan.merge.variant) == want
+    before = (dict(beam_step.expand_variant_launches),
+              dict(beam_step.merge_variant_launches))
+    t = beam.BeamState(*(x.clone() for x in s))
+    for step in range(300):
+        s, t = beam._step(s, c), beam._plain_step(t, c)
+        _assert_same_state(s, t, f"after step {step + 1}")
+        if bool(t.done.all()):
+            break
+    assert bool(s.done.all())
+    assert beam_step.expand_variant_launches[want[0]] == \
+        before[0][want[0]] + step + 1
+    assert beam_step.merge_variant_launches[want[1]] == \
+        before[1][want[1]] + step + 1
+
+
 def _index_searches(idx, queries, k, monkeypatch):
     """Index.search_batch(queries, k) through the kernels and through the
     plain torch step, and the merge kernel's launches in the first."""
