@@ -1,6 +1,6 @@
 """Time the graph beam step's segments of given checkouts on one GPU.
 
-    python3 beam_kernel_compare.py [--stamps] DIR [DIR ...]
+    python3 beam_kernel_compare.py [--stamps] [--profile] DIR [DIR ...]
 
 Each DIR is a checkout of this repository (for instance one unpacked with
 ``git archive`` into a directory that .gitignore lists); a DIR may repeat,
@@ -15,10 +15,19 @@ and, alongside, the plain torch step (``_plain_step``), whose final state
 must equal the kernels' bit for bit.  Each kernel segment is timed with
 CUDA events after a ``torch.cuda._sleep`` (so that the host has queued it
 and the events time the device alone), as ``chip_smoke.py`` phase 8c
-does.  Prints one JSON line per checkout (ms per step of each segment,
-the mean over the steps; the steps; the launch plan where the checkout
-names variants), then the card's name and power limit as nvidia-smi gives
-them.
+does, and so are the torch spans between them: `counter` (before the
+pop), `exact_pop`, `exact_rerank`, `gamma_sums` (between the merge and
+the gamma update) and `tail`; `step` is their sum, the whole step's
+device time without the spins.  Prints one JSON line per checkout (ms per
+step of each segment, the mean and the median over the steps; the steps;
+the launch plan where the checkout names variants), then the card's name
+and power limit as nvidia-smi gives them.
+
+--profile adds, per checkout, a warm ``search_batch`` of the same queries
+replayed from its kept CUDA graph as the graph cell runs it: the median
+of 5 host-clock batches (ms), and one batch under torch.profiler: device
+busy ms (the union of the kernels' intervals), device ops and busy ms per
+beam step.
 
 --stamps builds the checkout's kernels with -DBEAM_STAMPS (a measurement
 build of csrc/beam_step.cu under build/, where the Hopper expansion and
@@ -41,6 +50,12 @@ N, DIM, QUERIES, K = 1_000_000, 128, 1024, 10
 SLEEP_CYCLES = 4_000_000        # ~2 ms at the H100's ~1.98 GHz
 SEGMENTS = (("pop", "_pop"), ("expand", "_expand"), ("merge", "_merge"),
             ("gamma", "_gamma"))
+# a step's spans between its marks (the spins lie outside every span)
+SPANS = dict(counter=("begin", "pop<"), pop=("pop[", "pop]"),
+             exact_pop=("pop>", "expand<"), expand=("expand[", "expand]"),
+             exact_rerank=("expand>", "merge<"), merge=("merge[", "merge]"),
+             gamma_sums=("merge>", "gamma<"), gamma=("gamma[", "gamma]"),
+             tail=("gamma>", "end"))
 
 
 def stamped_library(beam_step):
@@ -92,7 +107,51 @@ def phase_summary(stamps: list, kernel: int) -> dict:
                 kernel_span_ns=float(np.mean(spans)))
 
 
-def worker(stamps: bool):
+def profiled_batch(g, q_dev) -> dict:
+    """A warm search_batch of q_dev replayed from its kept CUDA graph: the
+    median of 5 host-clock batches, then one batch under torch.profiler
+    (device busy = the union of its kernels' intervals)."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    queries = q_dev.cpu().numpy()
+    for _ in range(2):
+        g.search_batch(queries, k=K)
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        g.search_batch(queries, k=K)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    steps = g._beam(q_dev, g._entry_candidates, K, g._max_steps(K),
+                    debug_state=True)[2].steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g.search_batch(queries, k=K)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return dict(p50_ms=statistics.median(wall), batch_ms=wall, steps=steps,
+                busy_ms=busy / 1e3, device_ops=len(spans),
+                device_ops_per_step=len(spans) / max(steps, 1),
+                busy_ms_per_step=busy / 1e3 / max(steps, 1))
+
+
+def worker(stamps: bool, profile: bool):
     sys.path.insert(0, os.getcwd())         # the checkout, not this file's
     import statistics
 
@@ -133,6 +192,7 @@ def worker(stamps: bool):
 
     def timed(name, fn):
         def call(*args):
+            mark(name + "<")
             if stamps and name == "expand":
                 clear()
             torch.cuda._sleep(SLEEP_CYCLES)
@@ -142,6 +202,8 @@ def worker(stamps: bool):
             if stamps and name == "merge":
                 torch.cuda.synchronize()
                 stamped.append(read())
+            torch.cuda._sleep(SLEEP_CYCLES)
+            mark(name + ">")
             return out
         return call
 
@@ -153,7 +215,10 @@ def worker(stamps: bool):
             setattr(beam, fn, timed(name, real[fn]))
         for step in range(max_steps):
             marks.append([])
+            torch.cuda._sleep(SLEEP_CYCLES)
+            mark("begin")
             sk = beam._step(sk, ck)
+            mark("end")
             sp = beam._plain_step(sp, cp_)     # its own segments, untimed
             if bool(sk.done.all()) and bool(sp.done.all()):
                 break
@@ -165,8 +230,12 @@ def worker(stamps: bool):
         torch.equal(*((x.view(torch.int32), y.view(torch.int32))
                       if x.dtype == torch.float32 else (x, y)))
         for x, y in zip(sk, sp))
-    per_step = [{name: dict(m)[name + "["].elapsed_time(dict(m)[name + "]"])
-                 for name, _ in SEGMENTS} for m in marks]
+    per_step = []
+    for m in marks:
+        ev = dict(m)
+        t = {seg: ev[a].elapsed_time(ev[b]) for seg, (a, b) in SPANS.items()}
+        t["step"] = sum(t.values())
+        per_step.append(t)
     plan = beam_step.launch_plan(QUERIES, max(2 * g._r, 4 * K), K,
                                  g._expand_width, g._r,
                                  g._expand_width * g._r, g._padded, g._bits,
@@ -174,10 +243,11 @@ def worker(stamps: bool):
     print(json.dumps(dict(
         checkout=os.getcwd(), steps=len(per_step), equal_plain_step=equal,
         ms_per_step={name: statistics.fmean(t[name] for t in per_step)
-                     for name, _ in SEGMENTS},
+                     for name in per_step[0]},
         median_ms_per_step={name: statistics.median(t[name]
                                                     for t in per_step)
-                            for name, _ in SEGMENTS},
+                            for name in per_step[0]},
+        batch=profiled_batch(g, q_dev) if profile else None,
         plan={kind: list(p) for kind, p in plan._asdict().items()},
         stamps={name: phase_summary(stamped, i)
                 for i, name in enumerate(("beam_expand", "beam_merge"))}
@@ -188,11 +258,12 @@ def worker(stamps: bool):
 
 
 def main(argv):
-    if argv[:1] == ["--worker"]:
-        worker(argv[1:] == ["--stamps"])
+    flags = []
+    while argv[:1] and argv[0] in ("--worker", "--stamps", "--profile"):
+        flags.append(argv.pop(0))
+    if "--worker" in flags:
+        worker("--stamps" in flags, "--profile" in flags)
         return
-    flags = argv[:1] if argv[:1] == ["--stamps"] else []
-    argv = argv[len(flags):]
     if not argv:
         sys.exit(__doc__)
     rc = 0

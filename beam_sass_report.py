@@ -11,7 +11,7 @@ kernel instance: the checkout, the kernel, its registers, spill bytes and
 static shared memory from ptxas's ``-v`` report, its SASS instructions in
 all and by opcode (the part before the first dot), the barriers
 (``BAR``), and each loop's body in instructions (a branch back to a lower
-address closes a loop).  Then the card's name and power limit as
+address closes a loop) with the watched opcodes in it.  Then the card's name and power limit as
 nvidia-smi gives them.  ``--dump OUT`` also writes each checkout's SASS
 listing under OUT.  Needs the CUDA toolkit (``nvcc``, ``cuobjdump``); no
 card is used.
@@ -33,7 +33,7 @@ OUT = Path(__file__).resolve().parent / "build" / "beam_sass"
 # opcodes counted by name in the summary (the rest are in `by_opcode`)
 WATCH = ("BAR", "LDS", "STS", "LDG", "STG", "LD", "ST", "SHFL", "POPC",
          "MATCH", "VOTE", "ATOMS", "SYNCS", "UBLKCP", "IMAD", "LOP3", "ISETP",
-         "FSETP", "BRA")
+         "FSETP", "BRA", "FADD", "FMUL", "FFMA")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                     r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)\s*([^;]*);")
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
@@ -70,12 +70,17 @@ def summary(instrs) -> dict:
         if op.split(".")[0] == "BRA":
             t = re.search(r"0x([0-9a-f]+)", args)
             if t and int(t.group(1), 16) < addr:
-                loops.append((addr - int(t.group(1), 16)) // 16 + 1)
+                top = int(t.group(1), 16)
+                body = collections.Counter(
+                    o.split(".")[0] for a, o, _ in instrs if top <= a <= addr)
+                loops.append(dict(
+                    instructions=(addr - top) // 16 + 1,
+                    watched={o: body[o] for o in WATCH if body[o]}))
     real = sum(n for op, n in ops.items() if op not in ("NOP", "EXIT"))
     return dict(instructions=real,
                 watched={op: ops.get(op, 0) for op in WATCH},
-                loop_bodies=sorted(loops),
-                by_opcode=dict(ops.most_common()))
+                loop_bodies=sorted(x["instructions"] for x in loops),
+                loops=loops, by_opcode=dict(ops.most_common()))
 
 
 def ptxas_registers(log: str) -> dict:

@@ -81,10 +81,10 @@ Phases, in order; any failed check exits non-zero:
      segments between them, on each path), each kernel's bound from the
      bytes its active queries need and its roofline share, device ops a
      step and launches per batch from the profile of phase 8; then the
-     same check and timing with every kernel generic
-     (beam_step.GENERIC_ONLY: the first design of the expansion and the
-     merge), so that each Hopper variant's ms stands beside the generic
-     kernel's from the same run;
+     same check and timing with the expansion and the merge generic
+     (beam_step.GENERIC_ONLY: their first design), so that each Hopper
+     variant's ms stands beside the generic kernel's from the same run
+     (the pop and the gamma update have no generic variant);
   9. the sharded scan: ShardedScanIndex(128, bits=1) on the same 1M x 128d
      data over a (1, 4) mesh of cuda:i % device_count (4 shards of
      250,112 rows on one card), shard-native build (seconds per stage),
@@ -140,7 +140,7 @@ Phases, in order; any failed check exits non-zero:
 The graph path's step runs
 four hand-written kernels (kernels/beam_step.py; the JAX package's Pallas
 beam-step kernel was retired before the port, so they replace its XLA
-step) around torch's exact distances and the sums of the gamma ratios.  The last lines are the kernels'
+step) around torch's exact distances.  The last lines are the kernels'
 JSON (with every launch shape the scan kernel was checked at), the
 card's name and power limit as nvidia-smi reports them, and the result
 JSON.
@@ -822,10 +822,12 @@ EQUAL_EACH_STEP = 16
 class SegmentClock:
     """CUDA events around the segments of each beam step: the four segment
     functions (the kernels' wrappers or their plain versions) are wrapped,
-    and the torch segments are the spans between them: the step counter,
-    the exact distance to the popped nodes, the exact rerank, the sums of
-    the gamma ratios and the step's tail.  The last output of each wrapped
-    function is kept (`last`)."""
+    and the torch segments are the spans between them: before the pop
+    (`counter`, once the step counter's torch op, now in the pop), the
+    exact distance to the popped nodes, the exact rerank, between the
+    merge and the gamma update (`gamma_sums`, once the torch sums of the
+    ratios, now in the gamma update) and the step's tail.  The last output
+    of each wrapped function is kept (`last`)."""
 
     def __init__(self, cycles: int):
         self.cycles = cycles
@@ -896,17 +898,19 @@ def beam_kernel_bytes(q, done_before, active, expanded, dims) -> dict:
     read, one not active this step the expansion's and merge's; an active
     query reads its beam, its popped nodes' fused rows, its query levels,
     one visited slot per candidate (and writes one), the candidates
-    between the kernels, and writes its results and beam; the gamma update
-    reads and writes every query's terms and reads an expanding query's
-    two sums and contributing flags.  dims: (beam_cap,
+    between the kernels, and writes its results and beam; the pop reads
+    the step counter and writes the next; the gamma update reads and
+    writes every query's terms and reads an expanding query's ratios and
+    contributing flags.  dims: (beam_cap,
     k, E, E*R, rw, P, bytes of one fused row, bytes of one visited
     slot)."""
     b, k, e, er, rw, p, row, vis = dims
     capped = rw < er
     live = q - done_before
     return dict(
-        beam_gamma=q * 25 + expanded * (8 + rw),
-        beam_pop=q + done_before * (13 * e + 6) + live * (4 * b + 25 * e + 27),
+        beam_gamma=q * 25 + expanded * 5 * rw,
+        beam_pop=8 + q + done_before * (13 * e + 6)
+        + live * (4 * b + 25 * e + 27),
         beam_expand=q + (q - active) * (2 * er + 8 * rw + vis
                                         + (rw if capped else 0))
         + active * (4 * p + 20 + 13 * e + e * row + 2 * er * vis + 14 * er
@@ -923,6 +927,8 @@ BEAM_SEGMENTS = (("pop", "_pop", "_pop_plain"),
                  ("merge", "_merge", "_merge_plain"),
                  ("gamma", "_gamma", "_gamma_plain"))
 BEAM_KERNELS = ("beam_pop", "beam_expand", "beam_merge", "beam_gamma")
+# the kernels with a generic variant (beam_step.GENERIC_ONLY)
+GENERIC_VARIANTS = ("beam_expand", "beam_merge")
 
 
 def beam_launches() -> dict:
@@ -1055,12 +1061,14 @@ def shard_beam_start(idx, queries, k):
 def beam_kernel_drive(g, queries, card, prof):
     """Phase 8c: beam_equal_drive on the 1M graph index (the search's own
     arguments), with ms per step of each segment on both paths (CUDA
-    events, SegmentClock), each kernel's bound from the bytes its active
+    events, SegmentClock; the median of the steps, the mean beside it),
+    each kernel's bound from the bytes its active
     queries need (beam_kernel_bytes) and its roofline share; device ops a
     step and launches per batch from phase 8's profile (prof).  Then the
-    same with every kernel generic (beam_step.GENERIC_ONLY: the first
-    design of the expansion and the merge), held to the plain step and
-    timed alike.  Returns the kernels' entries for the kernels line."""
+    same with the expansion and the merge generic (beam_step.GENERIC_ONLY:
+    their first design), held to the plain step and timed alike; the pop
+    and the gamma update have no generic variant (their generic_ms is
+    None).  Returns the kernels' entries for the kernels line."""
     q_dev = torch.from_numpy(queries).cuda()
     k, r, ew = K, g._r, g._expand_width
     hash_bits = g._visited_hash_bits()
@@ -1078,22 +1086,35 @@ def beam_kernel_drive(g, queries, card, prof):
         beam_step.GENERIC_ONLY = False
     steps = len(counts)
     seg = {route: clock.segment_ms() for route, clock in clocks.items()}
+    # the median of the steps is each kernel's ms: a host stall longer
+    # than the spins before a segment lands in that segment's span, and
+    # one such step moves the mean of a few hundred by tenths of a ms
     mean = {route: {name: statistics.fmean(t[name] for t in times)
                     for name in times[0]} for route, times in seg.items()}
+    median = {route: {name: statistics.median(t[name] for t in times)
+                      for name in times[0]} for route, times in seg.items()}
     q = len(queries)
     row = (5 + g._bits * g._neighbors.words) * r * 4
     dims = (max(2 * r, 4 * k), k, ew, ew * r, ew * r, g._raw.shape[1], row,
             4 if hash_bits else 1)
     per_step = [beam_kernel_bytes(q, *n, dims) for n in counts]
     res.update(active_per_step=[a for _, a, _ in counts],
-               segment_ms_per_step=mean,
-               step_ms={route: sum(m.values()) for route, m in mean.items()},
+               segment_ms_per_step=median, segment_mean_ms_per_step=mean,
+               step_ms={route: sum(m.values())
+                        for route, m in median.items()},
+               step_mean_ms={route: sum(m.values())
+                             for route, m in mean.items()},
                device_ops_per_step=prof["device_ops_per_step"])
     for route in ("kernels", "generic", "plain"):
-        log(f"  {route}: ms per step " + ", ".join(
-            f"{name} {ms:.4f}" for name, ms in mean[route].items())
-            + f"; step {res['step_ms'][route]:.4f} ms (device time of the "
-            f"segments, CUDA events) [{card}]")
+        log(f"  {route}: ms per step, median (mean) of {steps} steps: "
+            + ", ".join(f"{name} {ms:.4f} ({mean[route][name]:.4f})"
+                        for name, ms in median[route].items())
+            + f"; step {res['step_ms'][route]:.4f} "
+            f"({res['step_mean_ms'][route]:.4f}) ms (device time of the "
+            f"segments, CUDA events)"
+            + (" (generic expansion and merge; the pop and the gamma update "
+               "have no generic variant)" if route == "generic" else "")
+            + f" [{card}]")
     log(f"  device ops a step in phase 8's profiled batch "
         f"{prof['device_ops_per_step']:.1f} ({prof['steps']} steps); beam "
         f"kernels there {json.dumps(prof['beam'])} [{card}]")
@@ -1102,8 +1123,12 @@ def beam_kernel_drive(g, queries, card, prof):
                                             "gamma")):
         nbytes = statistics.fmean(b[name] for b in per_step)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ms, plain_ms = mean["kernels"][segment], mean["plain"][segment]
-        generic_ms = mean["generic"][segment]
+        ms, plain_ms = median["kernels"][segment], median["plain"][segment]
+        generic_ms = (median["generic"][segment] if name in GENERIC_VARIANTS
+                      else None)
+        generic = ("no generic variant" if generic_ms is None else
+                   f"generic kernel {generic_ms:.4f} ms, roofline share "
+                   f"{bound_ms / generic_ms:.4f}")
         profiled = prof["beam"][name]
         entries.append(dict(
             name=name, route="cuda",
@@ -1111,19 +1136,21 @@ def beam_kernel_drive(g, queries, card, prof):
             replaces="cphnsw_tpu/search/beam.py:244",
             max_abs_err=max(res["max_abs_err"],
                             res["generic"]["max_abs_err"]),
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            ms=ms, mean_ms=mean["kernels"][segment], plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by="bytes",
             library_ms=None, roofline_share=bound_ms / ms,
             generic_ms=generic_ms,
-            generic_roofline_share=bound_ms / generic_ms,
+            generic_roofline_share=None if generic_ms is None
+            else bound_ms / generic_ms,
             bytes_per_launch=nbytes,
             launches_per_batch=profiled["launches"],
             profiled_ms_per_launch=profiled["ms"] / max(
                 profiled["launches"], 1)))
-        log(f"  {name}: {ms:.4f} ms per launch (mean of {steps} steps; "
-            f"generic kernels {generic_ms:.4f} ms), plain segment "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        log(f"  {name}: {ms:.4f} ms per launch (median of {steps} steps; "
+            f"mean {mean['kernels'][segment]:.4f}), "
+            f"plain segment {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
             f"({nbytes / 1e6:.3f} MB a step, bytes), roofline share "
-            f"{bound_ms / ms:.4f} (generic {bound_ms / generic_ms:.4f}); "
+            f"{bound_ms / ms:.4f} ({generic}); "
             f"profiled batch {profiled['launches']} launches at "
             f"{entries[-1]['profiled_ms_per_launch']:.4f} ms [{card}]")
     if min(p["launches"] for p in prof["beam"].values()) <= 0:

@@ -1,11 +1,11 @@
 // One step of the graph beam (search/beam.py `_step`) as four kernels
-// around the exact distances, three of them one block per query, the
-// gamma update one warp per query.
+// around the exact distances: the expansion and the merge one block per
+// query, the pop and the gamma update one warp per query.
 //
-//   beam_pop_kernel     the pop: top-E of the beam (stable), the DABS
-//                       termination, the popped slots set to FLOAT_MAX, the
-//                       lower-bound skip, the nodes to expand, the slack
-//                       level and its count.
+//   beam_pop_kernel     the step counter, the pop: top-E of the beam
+//                       (stable), the DABS termination, the popped slots
+//                       set to FLOAT_MAX, the lower-bound skip, the nodes to
+//                       expand, the slack level and its count.
 //   (torch)             the exact distance to each popped node,
 //                       estimate.exact_l2_sq.
 //   beam_expand_*       the E*R candidates of the popped nodes' fused rows:
@@ -19,10 +19,9 @@
 //                       the DABS enqueue, the stable top beam_cap of the
 //                       beam, and the per-candidate ratio of the gamma
 //                       adaptation.
-//   (torch)             the two float sums of those ratios per query.
-//   beam_gamma_kernel   the gamma adaptation's update from those sums (one
-//                       warp per query: its elementwise ops, the count of
-//                       contributing candidates in int32).
+//   beam_gamma_kernel   the gamma adaptation: the sums of those ratios and
+//                       of their squares, the count of contributing
+//                       candidates in int32, and the update.
 //
 // No TPU kernel stands behind these: the JAX package's step runs as XLA
 // ops, whose fusion made its Pallas step kernel slower and got it retired
@@ -90,8 +89,36 @@
 // beam_kernel_compare.py --stamps): a chain of three dependent trips to
 // device memory in the expansion (`active` and the popped nodes, their
 // rows, the visited slots) and, in the merge, the two sorts' barriers.
-// A query already done returns at once (the gamma update, a few bytes per
-// query, reads its flag and state).
+// The pop and the gamma update are a warp per query, eight queries a
+// block, with no shared memory and no barrier:
+//   * the pop selects without a sort.  Lane l holds the sort entries of
+//     the beam slots l, l + 32, l + 64, ... (in registers up to POP_KEEP of
+//     them, read again from L1 beyond) and the smallest of them; each of E
+//     rounds is a warp argmin (a xor butterfly of 64-bit shuffles), after
+//     which only the lane that owned the winner moves on to its next entry
+//     above it.  Lane e then reads and writes popped entry e (in turns of
+//     32 when E > 32), the count expanded is a ballot, and after the last
+//     round the slots at or below the E-th entry go to FLOAT_MAX.  It also
+//     writes the step counter, steps + 1.  What bounds it is latency, not
+//     its bytes (~0.35 MB a step at the graph cell): two dependent trips
+//     to device memory (the beam, then the popped slots' ids and bounds)
+//     around E rounds of ten shuffles.
+//   * the gamma update sums its query's ratios and their squares itself,
+//     in one fixed order: lane l adds the entries l, l + 32, l + 64, ... in
+//     turn onto +0.0, then a xor butterfly over the lanes at 16, 8, 4, 2,
+//     1, each product and sum one rounding (__fmul_rn, __fadd_rn).  The
+//     plain segment (search/beam.py `_lane_sums`) takes the same order in
+//     elementwise torch ops on rw zero-padded to a multiple of 32: a sum
+//     that starts at +0.0 never becomes -0.0, so adding the +0.0 pads
+//     changes no bit, and the two agree bit for bit.
+//   * both launch with programmatic stream serialization
+//     (launch_after_previous): their blocks may start while the kernel
+//     before them ends and wait in wait_for_previous_grid before their
+//     first read; the merge and the gamma update let the next kernel start
+//     at their entry.  In a captured CUDA graph these are programmatic
+//     edges.  (Kept on measurement: a profiled batch's device-busy time a
+//     step fell, PERF.md.)
+// A query already done returns at once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -169,6 +196,20 @@ __device__ __forceinline__ Carve workspace(unsigned char* scratch,
   return Carve{scratch + (size_t)blockIdx.x * ws_bytes};
 }
 
+// Programmatic dependent launch: a kernel launched with programmatic
+// stream serialization may start while the kernel before it on the stream
+// runs; it waits here before its first read of memory that kernel (or any
+// kernel before it) writes.  Without that launch attribute both are no-ops.
+__device__ __forceinline__ void wait_for_previous_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+// Lets the next kernel on the stream, if it was launched that way, start
+// its blocks now (they wait in wait_for_previous_grid until this grid has
+// finished and its writes are visible).
+__device__ __forceinline__ void let_next_grid_start() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
 // ATen's clamp_min and clamp on CUDA: NaN passes, else ::max / ::min.
 __device__ __forceinline__ float clamp_min_f(float v, float lo) {
   return isnan(v) ? v : fmaxf(v, lo);
@@ -196,70 +237,6 @@ __device__ __forceinline__ float ip_estimate(float ip_approx, float ip_cp,
   const float ratio =
       good ? __fdiv_rn(__fsub_rn(ip_approx, ip_cp), denom) : 0.f;
   return __fadd_rn(__fmul_rn(ratio, cal.affine_a), cal.affine_b);
-}
-
-template <bool kShared>
-__global__ void beam_pop_kernel(
-    float* __restrict__ beam_est, const int* __restrict__ beam_ids,
-    const float* __restrict__ beam_lower, const float* __restrict__ res_d,
-    const float* __restrict__ gamma_q, bool* __restrict__ done,
-    int* __restrict__ slack_cnt, const float* __restrict__ slack_levels,
-    bool* __restrict__ active_out, bool* __restrict__ expand_out,
-    bool* __restrict__ expand_e_out, int* __restrict__ pop_ids_out,
-    int64_t* __restrict__ cur_safe_out, float* __restrict__ dot_slack_out,
-    int beam_cap, int k, int ew, int num_levels,
-    unsigned char* __restrict__ scratch, long long ws_bytes) {
-  const int q = blockIdx.x;
-  const int tid = threadIdx.x;
-  float* est = beam_est + (size_t)q * beam_cap;
-  const size_t qe = (size_t)q * ew;
-  if (done[q]) {
-    for (int e = tid; e < ew; e += blockDim.x) {
-      expand_e_out[qe + e] = false;
-      pop_ids_out[qe + e] = -1;
-      cur_safe_out[qe + e] = 0;
-    }
-    if (tid == 0) {
-      active_out[q] = false;
-      expand_out[q] = false;
-      dot_slack_out[q] = 0.f;
-    }
-    return;
-  }
-  Carve ws = workspace<kShared>(scratch, ws_bytes);
-  const int pad = pow2_at_least(beam_cap);
-  uint64_t* key = ws.take<uint64_t>(pad);
-  for (int i = tid; i < pad; i += blockDim.x)
-    key[i] = i < beam_cap ? sort_entry(est[i], i) : SORT_PAD;
-  __syncthreads();
-  block_sort(key, pad);
-  if (tid != 0) return;
-  const float d_k = res_d[(size_t)q * k + k - 1];
-  const bool res_full = d_k < FLOAT_MAX;
-  const float pop0 = est[entry_index(key[0])];
-  const bool terminate = res_full && pop0 >= __fmul_rn(gamma_q[q], d_k);
-  const bool now_done = !(pop0 < FLOAT_MAX) || terminate;
-  const bool active = !now_done;
-  int expanded = 0;
-  for (int e = 0; e < ew; ++e) {
-    const int s = entry_index(key[e]);
-    const size_t at = (size_t)q * beam_cap + s;
-    const bool valid = est[s] < FLOAT_MAX;
-    const bool skip = res_full && beam_lower[at] > d_k;
-    const bool ex = active && valid && !skip;
-    const int id = beam_ids[at];
-    expand_e_out[qe + e] = ex;
-    pop_ids_out[qe + e] = id;
-    cur_safe_out[qe + e] = ex ? (int64_t)id : 0;
-    expanded += ex;
-    if (active && valid) est[s] = FLOAT_MAX;
-  }
-  const int cnt = slack_cnt[q];
-  dot_slack_out[q] = slack_levels[min(cnt, num_levels - 1)];
-  slack_cnt[q] = cnt + expanded;
-  done[q] = now_done;
-  active_out[q] = active;
-  expand_out[q] = expanded > 0;
 }
 
 template <bool kShared>
@@ -475,6 +452,7 @@ __global__ void beam_merge_kernel(
   const int q = blockIdx.x;
   const int tid = threadIdx.x;
   const size_t qr = (size_t)q * rw;
+  let_next_grid_start();
   if (!active[q]) {
     for (int i = tid; i < rw; i += blockDim.x) {
       ratio[qr + i] = 0.f;
@@ -1083,6 +1061,7 @@ __global__ void __launch_bounds__(768, 2) beam_merge_rank_kernel(
     float eps_small) {
   __shared__ float d_k_new;
   WALL(1, 8);
+  let_next_grid_start();
   const int q = blockIdx.x;
   const int t = threadIdx.x;
   const int m = k + rw + ew;          // results, reranked, popped
@@ -1223,27 +1202,193 @@ __global__ void __launch_bounds__(768, 2) beam_merge_rank_kernel(
   WALL(1, 9);
 }
 
-__global__ void beam_gamma_kernel(
+// ------------------------------------------------------------------------
+// The pop and the gamma update: a warp per query, up to WARP_QUERIES
+// queries a block (kernels/beam_step.py WARP_THREADS).
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARP_QUERIES = 8;
+// Beam entries a lane of the pop holds in registers: beam_cap up to 256
+// (the graph cell's 64, a shard's 128); the slots beyond are read again
+// from L1 in each rescan.
+constexpr int POP_KEEP = 8;
+
+// The value whose order_key is `key` (order_key's inverse).
+__device__ __forceinline__ float key_value(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// The smallest of the warp's entries, in every lane.
+__device__ __forceinline__ uint64_t warp_min(uint64_t x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const uint64_t y = __shfl_xor_sync(FULL, x, off);
+    x = y < x ? y : x;
+  }
+  return x;
+}
+
+// The smallest entry of at least `lo` among the lane's slots of the row
+// (j = lane + 32 i, the first POP_KEEP of them as order keys in `key`),
+// or SORT_PAD when there is none.
+__device__ __forceinline__ uint64_t lane_next(const uint32_t (&key)[POP_KEEP],
+                                              const float* row, int beam_cap,
+                                              int lane, uint64_t lo) {
+  uint64_t best = SORT_PAD;
+#pragma unroll
+  for (int i = 0; i < POP_KEEP; ++i) {
+    const int j = lane + 32 * i;
+    const uint64_t e = ((uint64_t)key[i] << 32) | (uint32_t)j;
+    if (j < beam_cap && e >= lo && e < best) best = e;
+  }
+  for (int j = lane + 32 * POP_KEEP; j < beam_cap; j += 32) {
+    const uint64_t e = sort_entry(row[j], j);
+    if (e >= lo && e < best) best = e;
+  }
+  return best;
+}
+
+__global__ void __launch_bounds__(32 * WARP_QUERIES) beam_pop_kernel(
+    float* __restrict__ beam_est, const int* __restrict__ beam_ids,
+    const float* __restrict__ beam_lower, const float* __restrict__ res_d,
+    const float* __restrict__ gamma_q, bool* __restrict__ done,
+    int* __restrict__ slack_cnt, const float* __restrict__ slack_levels,
+    const int* __restrict__ steps, bool* __restrict__ active_out,
+    bool* __restrict__ expand_out, bool* __restrict__ expand_e_out,
+    int* __restrict__ pop_ids_out, int64_t* __restrict__ cur_safe_out,
+    float* __restrict__ dot_slack_out, int* __restrict__ next_step,
+    int q_count, int beam_cap, int k, int ew, int num_levels) {
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (q >= q_count) return;
+  wait_for_previous_grid();
+  // every read that does not wait on the selection, the beam's first
+  // POP_KEEP entries a lane among them, coalesced
+  float* row = beam_est + (size_t)q * beam_cap;
+  const bool was_done = done[q];
+  const float d_k = res_d[(size_t)q * k + k - 1];
+  const float gamma = gamma_q[q];
+  const int cnt = slack_cnt[q];
+  const float slack = slack_levels[min(cnt, num_levels - 1)];
+  uint32_t key[POP_KEEP];
+#pragma unroll
+  for (int i = 0; i < POP_KEEP; ++i) {
+    const int j = lane + 32 * i;
+    key[i] = j < beam_cap ? order_key(row[j]) : 0u;
+  }
+  if (q == 0 && lane == 0) *next_step = *steps + 1;
+  const size_t qe = (size_t)q * ew;
+  if (was_done) {
+    for (int e = lane; e < ew; e += 32) {
+      expand_e_out[qe + e] = false;
+      pop_ids_out[qe + e] = -1;
+      cur_safe_out[qe + e] = 0;
+    }
+    if (lane == 0) {
+      active_out[q] = false;
+      expand_out[q] = false;
+      dot_slack_out[q] = 0.f;
+    }
+    return;
+  }
+
+  // E rounds of a warp argmin; lane (e mod 32) keeps the winner of round e
+  // and, after each 32 rounds and the last, handles its popped entry
+  const bool res_full = d_k < FLOAT_MAX;
+  uint64_t cur = lane_next(key, row, beam_cap, lane, 0);
+  uint64_t mine = SORT_PAD, win = 0;
+  bool active = false;
+  int expanded = 0;
+  for (int e = 0; e < ew; ++e) {
+    win = warp_min(cur);
+    if (lane == (entry_index(win) & 31))
+      cur = lane_next(key, row, beam_cap, lane, win + 1);
+    if (lane == (e & 31)) mine = win;
+    if (e == 0) {
+      const float pop0 = key_value((uint32_t)(win >> 32));
+      const bool terminate = res_full && pop0 >= __fmul_rn(gamma, d_k);
+      active = pop0 < FLOAT_MAX && !terminate;
+    }
+    if ((e & 31) == 31 || e == ew - 1) {
+      const int pe = (e & ~31) + lane;
+      bool ex = false;
+      if (pe <= e) {
+        const int s = entry_index(mine);
+        const size_t at = (size_t)q * beam_cap + s;
+        const bool valid = key_value((uint32_t)(mine >> 32)) < FLOAT_MAX;
+        const bool skip = res_full && beam_lower[at] > d_k;
+        const int id = beam_ids[at];
+        ex = active && valid && !skip;
+        expand_e_out[qe + pe] = ex;
+        pop_ids_out[qe + pe] = id;
+        cur_safe_out[qe + pe] = ex ? (int64_t)id : 0;
+      }
+      expanded += __popc(__ballot_sync(FULL, ex));
+    }
+  }
+  // the popped slots of an active query (every entry up to the last
+  // winner) that held a value go to FLOAT_MAX
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < POP_KEEP; ++i) {
+      const int j = lane + 32 * i;
+      const uint64_t e = ((uint64_t)key[i] << 32) | (uint32_t)j;
+      if (j < beam_cap && e <= win && key_value(key[i]) < FLOAT_MAX)
+        row[j] = FLOAT_MAX;
+    }
+    for (int j = lane + 32 * POP_KEEP; j < beam_cap; j += 32) {
+      const float v = row[j];
+      if (sort_entry(v, j) <= win && v < FLOAT_MAX) row[j] = FLOAT_MAX;
+    }
+  }
+  if (lane == 0) {
+    dot_slack_out[q] = slack;
+    slack_cnt[q] = cnt + expanded;
+    done[q] = !active;
+    active_out[q] = active;
+    expand_out[q] = expanded > 0;
+  }
+}
+
+__global__ void __launch_bounds__(32 * WARP_QUERIES) beam_gamma_kernel(
     float* __restrict__ ratio_sum, float* __restrict__ ratio_sq,
     int* __restrict__ ratio_cnt, float* __restrict__ gamma_q,
-    const bool* __restrict__ expand, const float* __restrict__ row_sum,
-    const float* __restrict__ row_sq, const bool* __restrict__ contrib,
-    int q, int rw, float gamma, float gamma_max, float gamma_beta,
-    int gamma_warmup) {
-  // one warp per query: its lanes count the contributing candidates
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
+    const bool* __restrict__ expand, const float* __restrict__ ratio,
+    const bool* __restrict__ contrib, int q, int rw, float gamma,
+    float gamma_max, float gamma_beta, int gamma_warmup) {
+  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  wait_for_previous_grid();
+  let_next_grid_start();
   if (i >= q) return;
   const bool ex = expand[i];
+  const float sum0 = ratio_sum[i], sq0 = ratio_sq[i];
+  const int cnt0 = ratio_cnt[i];
+  // the sums of the ratios and of their squares in the order of the plain
+  // segment (`_lane_sums`): lane l from +0.0 over l, l + 32, ..., then the
+  // lanes folded at 16, 8, 4, 2, 1; and the count of contributing entries
+  float row_sum = 0.f, row_sq = 0.f;
   int cnt = 0;
-  if (ex)
-    for (int j = lane; j < rw; j += 32) cnt += contrib[(size_t)i * rw + j];
-  for (int off = 16; off > 0; off >>= 1)
-    cnt += __shfl_down_sync(0xffffffffu, cnt, off);
+  if (ex) {
+    const float* r = ratio + (size_t)i * rw;
+    const bool* c = contrib + (size_t)i * rw;
+    for (int j = lane; j < rw; j += 32) {
+      const float x = r[j];
+      row_sum = __fadd_rn(row_sum, x);
+      row_sq = __fadd_rn(row_sq, __fmul_rn(x, x));
+      cnt += c[j];
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    row_sum = __fadd_rn(row_sum, __shfl_xor_sync(FULL, row_sum, off));
+    row_sq = __fadd_rn(row_sq, __shfl_xor_sync(FULL, row_sq, off));
+    cnt += __shfl_xor_sync(FULL, cnt, off);
+  }
   if (lane != 0) return;
-  const float sum = __fadd_rn(ratio_sum[i], ex ? row_sum[i] : 0.f);
-  const float sq = __fadd_rn(ratio_sq[i], ex ? row_sq[i] : 0.f);
-  const int n = ratio_cnt[i] + cnt;
+  const float sum = __fadd_rn(sum0, ex ? row_sum : 0.f);
+  const float sq = __fadd_rn(sq0, ex ? row_sq : 0.f);
+  const int n = cnt0 + cnt;
   const float cnt_f = clamp_min_f(__int2float_rn(n), 1.f);
   const float mean = __fdiv_rn(sum, cnt_f);
   const float var = clamp_min_f(
@@ -1263,6 +1408,28 @@ int opt_in(Kernel kernel, int smem) {
   // per device: set on every launch, a second card needs it too
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// Launches a warp-per-query kernel (`threads` / 32 queries a block, no
+// dynamic shared memory) for q queries on `stream` with programmatic stream
+// serialization: its blocks may start while the kernel before it on the
+// stream finishes, and wait in wait_for_previous_grid.  A CUDA graph
+// captures the launch as a programmatic edge.
+template <typename... Params, typename... Args>
+int launch_after_previous(void (*kernel)(Params...), int q, int threads,
+                          void* stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((q + threads / 32 - 1) / (threads / 32));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int err = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err ? err : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1285,22 +1452,18 @@ int beam_stamps_copy(void* dst) {
 int beam_pop_launch(void* beam_est, const void* beam_ids,
                     const void* beam_lower, const void* res_d,
                     const void* gamma_q, void* done, void* slack_cnt,
-                    const void* slack_levels, void* active, void* expand,
-                    void* expand_e, void* pop_ids, void* cur_safe,
-                    void* dot_slack, int q, int beam_cap, int k, int ew,
-                    int num_levels, int threads, int smem, void* scratch,
-                    long long ws_bytes, void* stream) {
-  auto kernel = scratch ? beam_pop_kernel<false> : beam_pop_kernel<true>;
-  int err = opt_in(kernel, smem);
-  if (err) return err;
-  kernel<<<q, threads, smem, (cudaStream_t)stream>>>(
-      (float*)beam_est, (const int*)beam_ids, (const float*)beam_lower,
-      (const float*)res_d, (const float*)gamma_q, (bool*)done,
-      (int*)slack_cnt, (const float*)slack_levels, (bool*)active,
+                    const void* slack_levels, const void* steps, void* active,
+                    void* expand, void* expand_e, void* pop_ids,
+                    void* cur_safe, void* dot_slack, void* next_step, int q,
+                    int beam_cap, int k, int ew, int num_levels, int threads,
+                    void* stream) {
+  return launch_after_previous(
+      beam_pop_kernel, q, threads, stream, (float*)beam_est,
+      (const int*)beam_ids, (const float*)beam_lower, (const float*)res_d,
+      (const float*)gamma_q, (bool*)done, (int*)slack_cnt,
+      (const float*)slack_levels, (const int*)steps, (bool*)active,
       (bool*)expand, (bool*)expand_e, (int*)pop_ids, (int64_t*)cur_safe,
-      (float*)dot_slack, beam_cap, k, ew, num_levels,
-      (unsigned char*)scratch, ws_bytes);
-  return (int)cudaGetLastError();
+      (float*)dot_slack, (int*)next_step, q, beam_cap, k, ew, num_levels);
 }
 
 int beam_expand_launch(
@@ -1398,20 +1561,15 @@ int beam_merge_launch(
 }
 
 int beam_gamma_launch(void* ratio_sum, void* ratio_sq, void* ratio_cnt,
-                      void* gamma_q, const void* expand, const void* row_sum,
-                      const void* row_sq, const void* contrib, int q, int rw,
-                      float gamma, float gamma_max, float gamma_beta,
-                      int gamma_warmup, int threads, void* stream) {
-  int err = opt_in(beam_gamma_kernel, 0);
-  if (err) return err;
-  const int per_block = threads / 32;
-  beam_gamma_kernel<<<(q + per_block - 1) / per_block, threads, 0,
-                      (cudaStream_t)stream>>>(
-      (float*)ratio_sum, (float*)ratio_sq, (int*)ratio_cnt, (float*)gamma_q,
-      (const bool*)expand, (const float*)row_sum, (const float*)row_sq,
-      (const bool*)contrib, q, rw, gamma, gamma_max, gamma_beta,
-      gamma_warmup);
-  return (int)cudaGetLastError();
+                      void* gamma_q, const void* expand, const void* ratio,
+                      const void* contrib, int q, int rw, float gamma,
+                      float gamma_max, float gamma_beta, int gamma_warmup,
+                      int threads, void* stream) {
+  return launch_after_previous(
+      beam_gamma_kernel, q, threads, stream, (float*)ratio_sum,
+      (float*)ratio_sq, (int*)ratio_cnt, (float*)gamma_q, (const bool*)expand,
+      (const float*)ratio, (const bool*)contrib, q, rw, gamma, gamma_max,
+      gamma_beta, gamma_warmup);
 }
 
 }  // extern "C"

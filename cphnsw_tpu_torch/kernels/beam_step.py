@@ -1,35 +1,38 @@
 """Launchers of the graph beam step's hand-written CUDA kernels.
 
-``search/beam.py``'s step runs, in order: the pop (``beam_pop``), the
-exact distance to each popped node (torch, ``estimate.exact_l2_sq``), the
-expansion of the popped nodes' E*R neighbours (``beam_expand``), the exact
-distances of the candidates it picked for the rerank (torch), the merge of
-results and beam (``beam_merge``), two float sums of the merge's ratios
-per query (torch, in torch's order) and the gamma adaptation
-(``beam_gamma``).  The exact distances stay torch ops between the
-kernels: their dot products keep torch's order, and a function patched
-into ``estimate.exact_l2_sq`` still reaches every exact distance of the
-search.
+``search/beam.py``'s step runs, in order: the step counter and the pop
+(``beam_pop``), the exact distance to each popped node (torch,
+``estimate.exact_l2_sq``), the expansion of the popped nodes' E*R
+neighbours (``beam_expand``), the exact distances of the candidates it
+picked for the rerank (torch), the merge of results and beam
+(``beam_merge``) and the gamma adaptation from the merge's ratios
+(``beam_gamma``, which sums them itself). The exact distances stay torch
+ops between the kernels: their dot products keep torch's order, and a
+function patched into ``estimate.exact_l2_sq`` still reaches every exact
+distance of the search.
 
 Each launcher takes the tensors its kernel reads and writes, CUDA tensors
-only (``csrc/beam_step.cu``: one block per query, a warp per query for the
-gamma update), and launches on the current stream, so a CUDA graph
-captures it; it raises on any other tensor, on a shape the plan refuses
-and on a CUDA error.  The segments' plain versions, which the CPU runs and
-the kernels are held to bit for bit, are ``search/beam.py``'s (``_pop``
-and the like choose by the state's device).  The kernels update the state
-in place, and a query that is done returns at once; where a query is not
-active they write what the next segments read (no node to expand, node 0
-to rerank, the gamma terms 0).
+only (``csrc/beam_step.cu``: the expansion and the merge one block per
+query, the pop and the gamma update a warp per query), and launches on the
+current stream, so a CUDA graph captures it; it raises on any other
+tensor, on a shape the plan refuses and on a CUDA error.  The pop and the
+gamma update launch with programmatic stream serialization, so that their
+blocks may start while the kernel before them ends.  The segments' plain
+versions, which the CPU runs and the kernels are held to bit for bit, are
+``search/beam.py``'s (``_pop`` and the like choose by the state's device).
+The kernels update the state in place, and a query that is done returns at
+once; where a query is not active they write what the next segments read
+(no node to expand, node 0 to rerank, the gamma terms 0).
 
 ``launch_plan`` is each launch's shape in plain Python: the kernel's
 variant, threads per block, and the bytes of each block's workspace, kept
 in dynamic shared memory where it fits (``SMEM_PER_BLOCK``) and else in a
-global scratch buffer of one slice per query.  The expansion and the merge
-have two variants each.  The Hopper ones ("bulk": rows by bulk copy,
-popcount fastscan, warp matches; "rank": warp sorts merged by rank) work
-in shared memory, one thread an entry, and take E*R up to 1,024 and the
-merge's sorts up to 768 entries; the generic ones (bitonic sorts, a
+global scratch buffer of one slice per query.  The pop has one variant,
+"warp" (a warp per query, no workspace, every beam_cap). The expansion and
+the merge have two variants each.  The Hopper ones ("bulk": rows by bulk
+copy, popcount fastscan, warp matches; "rank": warp sorts merged by rank)
+work in shared memory, one thread an entry, and take E*R up to 1,024 and
+the merge's sorts up to 768 entries; the generic ones (bitonic sorts, a
 candidate loop) take every other shape, also from global scratch.  The
 plan chooses by shape, never on error.  The CUDA source is compiled with
 ``nvcc`` at first use into ``build/cphnsw_tpu_torch/``
@@ -57,16 +60,16 @@ MAX_BITS = 4
 # 227 KB opt-in less 1 KB for the merge's static flag; a larger workspace
 # lives in global scratch.
 SMEM_PER_BLOCK = 231_424
-# threads per block of the gamma update (one warp per query)
-GAMMA_THREADS = 256
+# threads per block of the pop and the gamma update (one warp per query)
+WARP_THREADS = 256
 # Entries a Hopper variant takes, one a thread: the threads its launch
 # bounds allow (csrc/beam_step.cu).
 MAX_BLOCK = {"bulk": 1024, "rank": 768}
 # ints of a Hopper sort's per-warp counts (block_rank: 3 x 32 warps)
 RANK_COUNTS = 96
-# True: every plan names the generic kernels, which take every shape (so
-# that both variants can be held to the plain step and timed side by
-# side at one shape).
+# True: every plan names the generic expansion and merge, which take every
+# shape (so that both variants can be held to the plain step and timed
+# side by side at one shape); the pop has no generic variant.
 GENERIC_ONLY = False
 # the variant argument of the C launchers
 _VARIANT_IDS = {"generic": 0, "bulk": 1, "rank": 1}
@@ -89,7 +92,8 @@ class Plan(NamedTuple):
     workspace: int    # bytes per block
     smem: int         # dynamic shared bytes: the workspace, or 0 when it
                       # lives in global scratch
-    variant: str = "generic"   # "bulk" / "rank": the Hopper variants
+    variant: str = "generic"   # "bulk" / "rank" / "warp": the Hopper
+                               # variants
 
 
 class LaunchPlan(NamedTuple):
@@ -131,12 +135,14 @@ def _refuse(checks):
 
 
 def pop_plan(q: int, beam_cap: int, expand_width: int) -> Plan:
-    """The pop's launch: a sort of the beam's entries per query."""
+    """The pop's launch: a warp per query, WARP_THREADS a block, selecting
+    the E smallest beam entries in E rounds of a warp argmin; no
+    workspace, any beam_cap."""
     _refuse(((q >= 1, f"q = {q}: no query to launch"),
              (1 <= expand_width <= beam_cap,
               f"expand_width {expand_width} outside 1..beam_cap "
               f"{beam_cap}")))
-    return _plan(128, _carve((_pow2(beam_cap), 8)))
+    return Plan(WARP_THREADS, 0, 0, "warp")
 
 
 def expand_plan(q: int, expand_width: int, r: int, rw: int, p: int,
@@ -200,10 +206,11 @@ def merge_plan(q: int, beam_cap: int, k: int, expand_width: int, r: int,
 
 def launch_plan(q: int, beam_cap: int, k: int, expand_width: int, r: int,
                 rw: int, p: int, bits: int, words: int) -> LaunchPlan:
-    """The pop, expand and merge launches for a batch of q queries (one
-    block each; the fused rows 16-byte aligned, as the index stores
-    them), or ValueError for a shape the kernels refuse.  The gamma update
-    takes any shape: GAMMA_THREADS, a warp per query."""
+    """The pop, expand and merge launches for a batch of q queries (the
+    pop a warp each, the others a block each; the fused rows 16-byte
+    aligned, as the index stores them), or ValueError for a shape the
+    kernels refuse.  The gamma update takes any shape: WARP_THREADS, a
+    warp per query."""
     if k < 1:
         raise ValueError(f"beam_step kernels: k = {k}")
     return LaunchPlan(pop_plan(q, beam_cap, expand_width),
@@ -227,13 +234,13 @@ def load_library(path: Path | None = None) -> ctypes.CDLL:
     """The ctypes handle of a build at `path`; None: the package's own
     build, compiled at first use."""
     lib = nvcc.load(build_library()[0] if path is None else path)
-    lib.beam_pop_launch.argtypes = [_P] * 14 + [_I] * 7 + [_P, _L, _P]
+    lib.beam_pop_launch.argtypes = [_P] * 16 + [_I] * 6 + [_P]
     lib.beam_expand_launch.argtypes = (
         [_P, _L] + [_P] * 20 + [_I] * 9 + [_L] + [_F] * 7 + [_I] * 3
         + [_P, _L, _P])
     lib.beam_merge_launch.argtypes = [_P] * 27 + [_I] * 6 + [_F] + \
         [_I] * 3 + [_P, _L, _P]
-    lib.beam_gamma_launch.argtypes = [_P] * 8 + [_I] * 2 + [_F] * 3 + \
+    lib.beam_gamma_launch.argtypes = [_P] * 7 + [_I] * 2 + [_F] * 3 + \
         [_I] * 2 + [_P]
     for fn in (lib.beam_pop_launch, lib.beam_expand_launch,
                lib.beam_merge_launch, lib.beam_gamma_launch):
@@ -293,11 +300,12 @@ def _stream(dev) -> int:
 
 
 def beam_pop(beam_est, beam_ids, beam_lower, res_d, gamma_q, done,
-             slack_cnt, slack_levels, expand_width: int):
-    """Launch ``beam_pop_kernel``: pop the best expand_width beam entries
-    of each query.  Writes beam_est (popped entries of active queries to
+             slack_cnt, slack_levels, steps, expand_width: int):
+    """Launch ``beam_pop_kernel``: the step counter (steps: the () int32
+    steps run) and the pop of the best expand_width beam entries of each
+    query.  Writes beam_est (popped entries of active queries to
     FLOAT_MAX), done and slack_cnt in place; returns (active, expand,
-    expand_e, pop_ids, cur_safe, dot_slack)."""
+    expand_e, pop_ids, cur_safe, dot_slack, next_step)."""
     global pop_launches
     dev = _cuda(beam_est)
     q, beam_cap = beam_est.shape
@@ -311,20 +319,21 @@ def beam_pop(beam_est, beam_ids, beam_lower, res_d, gamma_q, done,
            gamma_q=(gamma_q, torch.float32, (q,)),
            done=(done, torch.bool, (q,)),
            slack_cnt=(slack_cnt, torch.int32, (q,)),
-           slack_levels=(slack_levels, torch.float32, slack_levels.shape[:1]))
+           slack_levels=(slack_levels, torch.float32, slack_levels.shape[:1]),
+           steps=(steps, torch.int32, ()))
     out = (torch.empty(q, dtype=torch.bool, device=dev),
            torch.empty(q, dtype=torch.bool, device=dev),
            torch.empty((q, ew), dtype=torch.bool, device=dev),
            torch.empty((q, ew), dtype=torch.int32, device=dev),
            torch.empty((q, ew), dtype=torch.int64, device=dev),
-           torch.empty(q, dtype=torch.float32, device=dev))
-    scratch, ws = _scratch(plan, q, dev)
+           torch.empty(q, dtype=torch.float32, device=dev),
+           torch.empty((), dtype=torch.int32, device=dev))
     with torch.cuda.device(dev):
         _launch("beam_pop_kernel", load_library().beam_pop_launch(
             *_ptrs(beam_est, beam_ids, beam_lower, res_d, gamma_q, done,
-                   slack_cnt, slack_levels, *out),
+                   slack_cnt, slack_levels, steps, *out),
             q, beam_cap, k, ew, slack_levels.shape[0], plan.threads,
-            plan.smem, *_ptrs(scratch), ws, _stream(dev)))
+            _stream(dev)))
     pop_launches += 1
     return out
 
@@ -472,13 +481,13 @@ def beam_merge(res_ids, res_d, res_step, last_improve, beam_est, beam_ids,
     return ratio, contrib
 
 
-def beam_gamma(ratio_sum, ratio_sq, ratio_cnt, gamma_q, expand, row_sum,
-               row_sq, contrib, gamma: float, gamma_max: float,
-               gamma_beta: float, gamma_warmup: int):
+def beam_gamma(ratio_sum, ratio_sq, ratio_cnt, gamma_q, expand, ratio,
+               contrib, gamma: float, gamma_max: float, gamma_beta: float,
+               gamma_warmup: int):
     """Launch ``beam_gamma_kernel``: the online gamma_q adaptation from
-    each query's sums of its ratios (row_sum) and of their squares
-    (row_sq) this step.  Writes gamma_q, ratio_sum, ratio_sq and ratio_cnt
-    in place."""
+    each query's ratios this step (ratio, contrib: (Q, rw), the merge's),
+    summed in the plain segment's lane order.  Writes gamma_q, ratio_sum,
+    ratio_sq and ratio_cnt in place."""
     global gamma_launches
     dev = _cuda(gamma_q)
     q, rw = contrib.shape
@@ -487,16 +496,15 @@ def beam_gamma(ratio_sum, ratio_sq, ratio_cnt, gamma_q, expand, row_sum,
            ratio_cnt=(ratio_cnt, torch.int32, (q,)),
            gamma_q=(gamma_q, torch.float32, (q,)),
            expand=(expand, torch.bool, (q,)),
-           row_sum=(row_sum, torch.float32, (q,)),
-           row_sq=(row_sq, torch.float32, (q,)),
+           ratio=(ratio, torch.float32, (q, rw)),
            contrib=(contrib, torch.bool, (q, rw)))
     _scalars(gamma, gamma_max, gamma_beta, gamma_warmup)
     if not -2**31 <= gamma_warmup < 2**31:
         raise ValueError("gamma_warmup must lie within int32")
     with torch.cuda.device(dev):
         _launch("beam_gamma_kernel", load_library().beam_gamma_launch(
-            *_ptrs(ratio_sum, ratio_sq, ratio_cnt, gamma_q, expand, row_sum,
-                   row_sq, contrib),
+            *_ptrs(ratio_sum, ratio_sq, ratio_cnt, gamma_q, expand, ratio,
+                   contrib),
             q, rw, float(gamma), float(gamma_max), float(gamma_beta),
-            int(gamma_warmup), GAMMA_THREADS, _stream(dev)))
+            int(gamma_warmup), WARP_THREADS, _stream(dev)))
     gamma_launches += 1

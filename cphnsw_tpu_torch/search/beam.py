@@ -40,12 +40,15 @@ same up to which duplicate expansions happen (the result heap dedups):
     exactly on CUDA; the JAX scatter fixes no winner;
   * the fastscan int32 contraction is an exact fp32 product
     (``estimate.fastscan_sums``);
-  * on CUDA the step's pop, expansion and merge are three hand-written
-    kernels (``kernels/beam_step.py``), one block per query, around the
-    exact distances, which stay torch ops (``estimate.exact_l2_sq``), and
-    a fourth updates gamma from two torch sums: they update the state in
-    place, skip the queries that are done, and give the bits of the
-    step's plain segments (``_plain_step``, which the CPU runs).
+  * on CUDA the step's pop (with the step counter), expansion, merge and
+    gamma update are four hand-written kernels (``kernels/beam_step.py``)
+    around the exact distances, which stay torch ops
+    (``estimate.exact_l2_sq``): they update the state in place, skip the
+    queries that are done, and give the bits of the step's plain segments
+    (``_plain_step``, which the CPU runs);
+  * the gamma adaptation sums each query's ratios in a fixed order
+    (``_lane_sums``), the one its kernel takes; the JAX package's
+    ``jnp.sum`` takes XLA's.
 """
 
 from __future__ import annotations
@@ -477,13 +480,13 @@ def _advance(buf: BeamState, c: _Consts, steps: int):
 
 # ------------------------------------------------------------ the step
 #
-# One step in segments: the pop, the exact distance to each popped node,
-# the expansion, the exact distances of the candidates it picked for the
-# rerank, the merge, two sums of the merge's ratios and the gamma update.
-# The exact distances and the sums are torch ops on every device; the
-# other segments are plain torch (`_pop_plain` ...) on the CPU and the
-# kernels of kernels/beam_step.py on CUDA (`_pop` ...), which update the
-# state in place and equal the plain segments bit for bit.
+# One step in segments: the pop (and the step counter), the exact distance
+# to each popped node, the expansion, the exact distances of the
+# candidates it picked for the rerank, the merge and the gamma update.
+# The exact distances are torch ops on every device; the other segments
+# are plain torch (`_pop_plain` ...) on the CPU and the kernels of
+# kernels/beam_step.py on CUDA (`_pop` ...), which update the state in
+# place and equal the plain segments bit for bit.
 
 
 class Popped(NamedTuple):
@@ -497,6 +500,7 @@ class Popped(NamedTuple):
     pop_ids: torch.Tensor     # (Q, E) int32
     cur_safe: torch.Tensor    # (Q, E) int64: expanded node, 0 elsewhere
     dot_slack: torch.Tensor   # (Q,) f32: the slack level of this step
+    next_step: torch.Tensor   # () int32: the steps run after this one
 
 
 class Expanded(NamedTuple):
@@ -527,7 +531,8 @@ class Merged(NamedTuple):
 
 def _pop_plain(s: BeamState, c: _Consts) -> Popped:
     """Pop the best E beam entries of each query: the DABS termination,
-    the lower-bound skip, the nodes to expand and the slack level."""
+    the lower-bound skip, the nodes to expand and the slack level; and
+    count the step."""
     k, expand_width = c.k, c.expand_width
     num_levels = c.params.slack_levels.shape[0]
     beam_est = s.beam_est
@@ -556,7 +561,7 @@ def _pop_plain(s: BeamState, c: _Consts) -> Popped:
     dot_slack = c.params.slack_levels[s.slack_cnt.clamp_max(num_levels - 1)]
     slack_cnt = s.slack_cnt + expand_e.sum(dim=1, dtype=torch.int32)
     return Popped(beam_est, done, slack_cnt, active, expand, expand_e,
-                  pop_ids, cur_safe, dot_slack)
+                  pop_ids, cur_safe, dot_slack, s.steps + 1)
 
 
 def _expand_plain(s: BeamState, c: _Consts, pop: Popped,
@@ -705,12 +710,29 @@ def _merge_plain(s: BeamState, c: _Consts, pop: Popped, d_qp_sq,
                   beam_ids, beam_lower, ratio, contrib)
 
 
-def _gamma_plain(s: BeamState, c: _Consts, expand, row_sum, row_sq,
-                 contrib):
-    """The online gamma_q adaptation from each query's sums of its ratios
-    (row_sum) and of their squares (row_sq) this step: (gamma_q, ratio_sum,
-    ratio_sq, ratio_cnt)."""
+def _lane_sums(x: torch.Tensor) -> torch.Tensor:
+    """The sum of each row of x (Q, w) in the order of the gamma kernel's
+    warp: lane l adds the entries l, l + 32, l + 64, ... in turn onto +0.0
+    (here w zero-padded to a multiple of 32: adding +0.0 to a sum that
+    started at +0.0 changes no bit), then the lanes fold in halves at 16,
+    8, 4, 2, 1.  Each op rounds once, on every device."""
+    q, w = x.shape
+    m = -(-w // 32)
+    lanes = torch.nn.functional.pad(x, (0, 32 * m - w)).view(q, m, 32)
+    acc = torch.zeros((q, 32), dtype=x.dtype, device=x.device)
+    for i in range(m):
+        acc = acc + lanes[:, i]
+    for half in (16, 8, 4, 2, 1):
+        acc = acc[:, :half] + acc[:, half:2 * half]
+    return acc[:, 0]
+
+
+def _gamma_plain(s: BeamState, c: _Consts, expand, ratio, contrib):
+    """The online gamma_q adaptation from each query's ratios this step
+    (ratio, contrib: (Q, rw), the merge's), summed with their squares by
+    _lane_sums: (gamma_q, ratio_sum, ratio_sq, ratio_cnt)."""
     params = c.params
+    row_sum, row_sq = _lane_sums(ratio), _lane_sums(ratio * ratio)
     ratio_sum = s.ratio_sum + torch.where(expand, row_sum, 0.0)
     ratio_sq = s.ratio_sq + torch.where(expand, row_sq, 0.0)
     ratio_cnt = s.ratio_cnt + torch.where(
@@ -737,7 +759,7 @@ def _pop(s: BeamState, c: _Consts) -> Popped:
         return _pop_plain(s, c)
     return Popped(s.beam_est, s.done, s.slack_cnt, *beam_step.beam_pop(
         s.beam_est, s.beam_ids, s.beam_lower, s.res_d, s.gamma_q, s.done,
-        s.slack_cnt, c.params.slack_levels, c.expand_width))
+        s.slack_cnt, c.params.slack_levels, s.steps, c.expand_width))
 
 
 def _expand(s: BeamState, c: _Consts, pop: Popped, d_qp_sq) -> Expanded:
@@ -769,15 +791,15 @@ def _merge(s: BeamState, c: _Consts, pop: Popped, d_qp_sq, ex: Expanded,
                   pop.beam_est, s.beam_ids, s.beam_lower, ratio, contrib)
 
 
-def _gamma(s: BeamState, c: _Consts, expand, row_sum, row_sq, contrib):
+def _gamma(s: BeamState, c: _Consts, expand, ratio, contrib):
     """``_gamma_plain`` on the CPU; on CUDA ``beam_step.beam_gamma``'s
     kernel, which writes gamma_q and the ratio terms in place."""
     if _on_cpu(s):
-        return _gamma_plain(s, c, expand, row_sum, row_sq, contrib)
+        return _gamma_plain(s, c, expand, ratio, contrib)
     p = c.params
     beam_step.beam_gamma(s.ratio_sum, s.ratio_sq, s.ratio_cnt, s.gamma_q,
-                         expand, row_sum, row_sq, contrib, p.gamma,
-                         p.gamma_max, p.gamma_beta, p.gamma_warmup)
+                         expand, ratio, contrib, p.gamma, p.gamma_max,
+                         p.gamma_beta, p.gamma_warmup)
     return s.gamma_q, s.ratio_sum, s.ratio_sq, s.ratio_cnt
 
 
@@ -799,7 +821,6 @@ def _plain_step(s: BeamState, c: _Consts) -> BeamState:
 
 def _segments_step(s: BeamState, c: _Consts, pop_fn, expand_fn, merge_fn,
                    gamma_fn) -> BeamState:
-    next_step = s.steps + 1
     pop = pop_fn(s, c)
     # exact distance to each popped node = d_qp^2
     d_qp_sq = estimate.exact_l2_sq(c.qpad, c.qnorm, c.raw[pop.cur_safe],
@@ -808,13 +829,12 @@ def _segments_step(s: BeamState, c: _Consts, pop_fn, expand_fn, merge_fn,
     rr_vecs = c.raw[ex.rr_node]                               # (Q, rw, P)
     exact_rr = estimate.exact_l2_sq(c.qpad, c.qnorm, rr_vecs,
                                     (rr_vecs * rr_vecs).sum(dim=-1))
-    m = merge_fn(s, c, pop, d_qp_sq, ex, exact_rr, next_step)
+    m = merge_fn(s, c, pop, d_qp_sq, ex, exact_rr, pop.next_step)
     gamma_q, ratio_sum, ratio_sq, ratio_cnt = gamma_fn(
-        s, c, pop.expand, m.ratio.sum(dim=1), (m.ratio * m.ratio).sum(dim=1),
-        m.contrib)
+        s, c, pop.expand, m.ratio, m.contrib)
     return BeamState(
         beam_ids=m.beam_ids, beam_est=m.beam_est, beam_lower=m.beam_lower,
         res_ids=m.res_ids, res_d=m.res_d, visited=s.visited, gamma_q=gamma_q,
         ratio_sum=ratio_sum, ratio_sq=ratio_sq, ratio_cnt=ratio_cnt,
-        slack_cnt=pop.slack_cnt, done=pop.done, steps=next_step,
+        slack_cnt=pop.slack_cnt, done=pop.done, steps=pop.next_step,
         last_improve=m.last_improve, res_step=m.res_step)

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from cphnsw_tpu.api.index import Index as JIndex
@@ -118,6 +119,118 @@ def test_segmented_step_matches_jax(indexes, data, case, monkeypatch):
         assert s_t.steps == min(MAX_STEPS, -(-steps_j // check) * check)
 
 
+def _pop_state(beam_cap, k, seed):
+    """A seeded batch of 24 beams for the pop: values from a pool of four
+    (ties), a third of the slots FLOAT_MAX holes (one row all holes), the
+    results full in half the rows, a quarter of the queries done, the
+    step counter at 41; and the constants the pop reads."""
+    rng = np.random.default_rng(seed)
+    q = 24
+    pool = np.array([0.25, 1.0, 1.5, 4.0], np.float32)
+    est = rng.choice(pool, (q, beam_cap)).astype(np.float32)
+    est[rng.random((q, beam_cap)) < 1 / 3] = tbeam.FLOAT_MAX
+    est[5] = tbeam.FLOAT_MAX
+    res_d = np.full((q, k), tbeam.FLOAT_MAX, np.float32)
+    res_d[::2] = rng.choice(pool, (q // 2, k))
+    t = torch.from_numpy
+    s = tbeam.BeamState(
+        beam_ids=t(rng.integers(0, 10_000, (q, beam_cap)).astype(np.int32)),
+        beam_est=t(est), beam_lower=t(rng.choice(pool, (q, beam_cap))),
+        res_ids=None, res_d=t(res_d), visited=None,
+        gamma_q=t(rng.choice(np.float32([1.0, 2.0, 5.0]), q)),
+        ratio_sum=None, ratio_sq=None, ratio_cnt=None,
+        slack_cnt=t(rng.integers(0, 6, q).astype(np.int32)),
+        done=t(rng.random(q) < 0.25),
+        steps=torch.tensor(41, dtype=torch.int32), last_improve=None,
+        res_step=None)
+    params = tbeam.SearchParams.default(device="cpu")._replace(
+        slack_levels=torch.tensor([0.0, 0.5, 1.0, 2.0]))
+    return s, params
+
+
+@pytest.mark.parametrize("ew", [1, 4, 32, 33, 99, 100])
+def test_plain_pop_selects_stably_and_counts_the_step(ew):
+    """The plain pop at beam_cap 100 (not a multiple of 32) with FLOAT_MAX
+    holes and ties, E from 1 to beam_cap: the popped slots are lax.top_k's
+    (the lower slot first among equal values), every output follows from
+    them as the JAX step derives it, and the step counter is steps + 1, a
+    () int32 tensor."""
+    beam_cap, k = 100, 10
+    s, params = _pop_state(beam_cap, k, ew)
+    c = tbeam._Consts(*[None] * 8, params=params, bits=1, k=k, r=1,
+                      words=1, expand_width=ew, rw=1, h_size=0)
+    pop = tbeam._pop_plain(s, c)
+    est = s.beam_est.numpy()
+    slots = np.asarray(jax.lax.top_k(-jnp.asarray(est), ew)[1])
+    np.testing.assert_array_equal(
+        slots, np.argsort(est, axis=1, kind="stable")[:, :ew])
+    rows = np.arange(len(est))[:, None]
+    pop_est = est[rows, slots]
+    valid = pop_est < tbeam.FLOAT_MAX
+    d_k = s.res_d.numpy()[:, k - 1]
+    full = d_k < tbeam.FLOAT_MAX
+    with np.errstate(over="ignore"):       # gamma * FLOAT_MAX, as torch
+        done = s.done.numpy() | ~valid[:, 0] | (
+            full & (pop_est[:, 0] >= s.gamma_q.numpy() * d_k))
+    expand_e = (~done[:, None] & valid & ~(
+        full[:, None] & (s.beam_lower.numpy()[rows, slots] > d_k[:, None])))
+    ids = s.beam_ids.numpy()[rows, slots]
+    want_est = est.copy()
+    popped = np.zeros(est.shape, bool)
+    popped[rows, slots] = valid
+    want_est[~done[:, None] & popped] = tbeam.FLOAT_MAX
+    np.testing.assert_array_equal(pop.beam_est.numpy(), want_est)
+    np.testing.assert_array_equal(pop.done.numpy(), done)
+    np.testing.assert_array_equal(pop.active.numpy(), ~done)
+    np.testing.assert_array_equal(pop.expand_e.numpy(), expand_e)
+    np.testing.assert_array_equal(pop.expand.numpy(), expand_e.any(1))
+    np.testing.assert_array_equal(pop.pop_ids.numpy(), ids)
+    np.testing.assert_array_equal(pop.cur_safe.numpy(),
+                                  np.where(expand_e, ids, 0))
+    np.testing.assert_array_equal(
+        pop.slack_cnt.numpy(), s.slack_cnt.numpy() + expand_e.sum(1))
+    np.testing.assert_array_equal(
+        pop.dot_slack.numpy(),
+        params.slack_levels.numpy()[np.minimum(s.slack_cnt.numpy(), 3)])
+    assert pop.next_step.dtype == torch.int32 and pop.next_step.shape == ()
+    assert int(pop.next_step) == 42 and int(s.steps) == 41
+    assert expand_e.any() and (~valid).any() and done.any() and \
+        (~done).any()
+
+
+@pytest.mark.parametrize("rw", [8, 32, 100, 128])
+def test_lane_sums_match_a_float32_loop(rw):
+    """The gamma update's row sums (``_lane_sums``) equal a float32 loop
+    in the kernel's order, bit for bit: lane l from +0.0 over the entries
+    l, l + 32, ..., then the lanes folded at 16, 8, 4, 2, 1; with +0.0,
+    -0.0 (a row of -0.0 alone sums to +0.0) and NaN entries."""
+    rng = np.random.default_rng(rw)
+    x = (rng.standard_normal((12, rw)) * 10.0 ** rng.integers(
+        -3, 4, (12, rw))).astype(np.float32)
+    x[0] = -0.0
+    x[1, ::3] = 0.0
+    x[2, ::2] = -0.0
+    x[3, rw // 2] = np.nan
+    want = np.zeros(12, np.float32)
+    for row in range(12):
+        lanes = [np.float32(0.0)] * 32
+        for j in range(rw):
+            lanes[j % 32] = np.float32(lanes[j % 32] + x[row, j])
+        half = 16
+        while half:
+            lanes = [np.float32(lanes[i] + lanes[i + half])
+                     for i in range(half)]
+            half //= 2
+        want[row] = lanes[0]
+    got = tbeam._lane_sums(torch.from_numpy(x)).numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got.view(np.int32)[~nan],
+                                  want.view(np.int32)[~nan])
+    assert got.view(np.int32)[0] == 0      # +0.0, not -0.0
+    assert nan[3] and not nan[:3].any()
+
+
 def test_merge_results_match_jax():
     """The merge's stable top-k of results and pushes: ties (FLOAT_MAX
     slots, repeated distances) go to the lower index, as lax.top_k's."""
@@ -201,48 +314,49 @@ def test_expand_estimates_match_jax(indexes, data, bits):
 # 1536d's P, and (past the limits an earlier plan had) k = 250 and 2,500,
 # R = 128 and P = 65,536: (pop, expand, merge) as (threads, workspace
 # bytes, dynamic shared bytes, variant), 0 shared bytes where the
-# workspace lives in global scratch; first as planned, then with every
-# kernel generic (beam_step.GENERIC_ONLY)
+# workspace lives in global scratch (the pop, a warp per query, has none
+# at any beam_cap); first as planned, then with the expansion and the
+# merge generic (beam_step.GENERIC_ONLY)
 PLAN_SHAPES = {
     "cell": ((1024, 64, 10, 4, 32, 128, 128, 1, 4),
-             ((128, 512, 512, "generic"), (128, 8784, 8784, "bulk"),
+             ((256, 0, 0, "warp"), (128, 8784, 8784, "bulk"),
               (192, 3376, 3376, "rank")),
              ((128, 3328, 3328), (256, 8640, 8640))),
     "k100": ((1024, 400, 100, 4, 32, 128, 128, 1, 4),
-             ((128, 4096, 4096, "generic"), (128, 8784, 8784, "bulk"),
+             ((256, 0, 0, "warp"), (128, 8784, 8784, "bulk"),
               (544, 8848, 8848, "rank")),
              ((128, 3328, 3328), (256, 19872, 19872))),
     "shard-k10": ((1024, 128, 10, 1, 32, 32, 128, 1, 4),
-                  ((128, 1024, 1024, "generic"), (32, 2256, 2256, "bulk"),
+                  ((256, 0, 0, "warp"), (32, 2256, 2256, "bulk"),
                    (160, 2608, 2608, "rank")),
                   ((128, 1216, 1216), (256, 5136, 5136))),
     "shard-k100": ((128, 400, 100, 1, 32, 32, 128, 4, 4),
-                   ((128, 4096, 4096, "generic"), (32, 3792, 3792, "bulk"),
+                   ((256, 0, 0, "warp"), (32, 3792, 3792, "bulk"),
                     (448, 7312, 7312, "rank")),
                    ((128, 1216, 1216), (256, 13088, 13088))),
     "rerank8": ((1024, 64, 10, 4, 32, 8, 128, 1, 4),
-                ((128, 512, 512, "generic"), (128, 10704, 10704, "bulk"),
+                ((256, 0, 0, "warp"), (128, 10704, 10704, "bulk"),
                  (192, 3376, 3376, "rank")),
                 ((128, 4352, 4352), (256, 5408, 5408))),
     "p2048-e4-r64": ((512, 128, 10, 4, 64, 256, 2048, 2, 64),
-                     ((128, 1024, 1024, "generic"),
+                     ((256, 0, 0, "warp"),
                       (256, 145424, 145424, "bulk"),
                       (384, 6192, 6192, "rank")),
                      ((256, 13824, 13824), (256, 17088, 17088))),
     "k250": ((1024, 1000, 250, 4, 32, 128, 128, 1, 4),
-             ((128, 8192, 8192, "generic"), (128, 8784, 8784, "bulk"),
+             ((256, 0, 0, "warp"), (128, 8784, 8784, "bulk"),
               (256, 39136, 39136, "generic")),
              ((128, 3328, 3328), (256, 39136, 39136))),
     "k2500": ((64, 10000, 2500, 4, 32, 128, 128, 1, 4),
-              ((128, 131072, 131072, "generic"), (128, 8784, 8784, "bulk"),
+              ((256, 0, 0, "warp"), (128, 8784, 8784, "bulk"),
                (256, 317472, 0, "generic")),
               ((128, 3328, 3328), (256, 317472, 0))),
     "r128-rw8": ((64, 256, 10, 4, 128, 8, 128, 2, 4),
-                 ((128, 2048, 2048, "generic"), (512, 49616, 49616, "bulk"),
+                 ((256, 0, 0, "warp"), (512, 49616, 49616, "bulk"),
                   (768, 11824, 11824, "rank")),
                  ((256, 15872, 15872), (256, 20000, 20000))),
     "p65536": ((16, 64, 10, 4, 32, 128, 65536, 1, 2048),
-               ((128, 512, 512, "generic"), (128, 264960, 0, "generic"),
+               ((256, 0, 0, "warp"), (128, 264960, 0, "generic"),
                 (192, 3376, 3376, "rank")),
                ((128, 264960, 0), (256, 8640, 8640))),
 }
@@ -260,8 +374,9 @@ def test_launch_plan_at_the_paths_shapes(shape):
 
 @pytest.mark.parametrize("shape", list(PLAN_SHAPES))
 def test_generic_only_plans_the_generic_kernels(shape, monkeypatch):
-    """With GENERIC_ONLY every kernel is the generic one, planned as
-    before the Hopper variants (which pop always is)."""
+    """With GENERIC_ONLY the expansion and the merge are the generic
+    kernels, planned as before their Hopper variants; the pop has one
+    variant, the warp pop, at every shape."""
     args, want, generic = PLAN_SHAPES[shape]
     monkeypatch.setattr(beam_step, "GENERIC_ONLY", True)
     plan = beam_step.launch_plan(*args)
@@ -333,8 +448,9 @@ def test_launch_plan_takes_generic_where_shared_memory_is_short(
                                                           "generic")
     assert small.expand.workspace < plan.expand.workspace
     monkeypatch.setattr(beam_step, "SMEM_PER_BLOCK", 0)
-    assert all(p.smem == 0 and p.variant == "generic"
-               for p in beam_step.launch_plan(*args))
+    none = beam_step.launch_plan(*args)
+    assert all(p.smem == 0 and p.variant == "generic" for p in none[1:])
+    assert none.pop == plan.pop and plan.pop.smem == 0   # no workspace
     monkeypatch.undo()
     q, beam_cap, k, ew, r, rw, p, bits, words = args
     assert beam_step.expand_plan(q, ew, r, rw, p, bits, words,
@@ -353,10 +469,10 @@ def test_launch_plan_takes_the_shapes_past_the_old_limits(args):
     workspace that holds its sorts, in shared memory or global scratch
     (the generic merge: both sorts' entries and their values; the rank
     merge: a run entry and a rank a thread, one thread an entry of the
-    larger sort)."""
+    larger sort; the pop, a warp a query, needs none)."""
     plan = beam_step.launch_plan(*args)
     q, beam_cap, k, ew, r, rw, p = args[:7]
-    assert plan.pop.workspace >= 8 * beam_cap
+    assert tuple(plan.pop) == (beam_step.WARP_THREADS, 0, 0, "warp")
     assert plan.expand.workspace >= 4 * p + 22 * ew * r
     if plan.merge.variant == "rank":
         assert plan.merge.threads >= max(k + rw + ew, beam_cap + ew * r)
@@ -397,7 +513,7 @@ def _launches(s, c, pop, d_qp_sq, ex, exact_rr, ratio):
     return {
         "pop": lambda: beam_step.beam_pop(
             s.beam_est, s.beam_ids, s.beam_lower, s.res_d, s.gamma_q,
-            s.done, s.slack_cnt, p.slack_levels, c.expand_width),
+            s.done, s.slack_cnt, p.slack_levels, s.steps, c.expand_width),
         "expand": lambda: beam_step.beam_expand(
             c.fused, c.q_u, *(t.squeeze(1) for t in c.coeff), s.res_d,
             pop.active, pop.expand_e, pop.cur_safe, pop.dot_slack, d_qp_sq,
@@ -406,13 +522,13 @@ def _launches(s, c, pop, d_qp_sq, ex, exact_rr, ratio):
             ip_qo_floor=p.ip_qo_floor),
         "merge": lambda: beam_step.beam_merge(
             s.res_ids, s.res_d, s.res_step, s.last_improve, pop.beam_est,
-            s.beam_ids, s.beam_lower, s.gamma_q, s.steps + 1, pop.active,
+            s.beam_ids, s.beam_lower, s.gamma_q, pop.next_step, pop.active,
             pop.expand, pop.expand_e, pop.pop_ids, pop.cur_safe, d_qp_sq,
             *ex, exact_rr),
         "gamma": lambda: beam_step.beam_gamma(
             s.ratio_sum, s.ratio_sq, s.ratio_cnt, s.gamma_q, pop.expand,
-            ratio.sum(dim=1), (ratio * ratio).sum(dim=1), ratio > 0,
-            p.gamma, p.gamma_max, p.gamma_beta, p.gamma_warmup),
+            ratio, ratio > 0, p.gamma, p.gamma_max, p.gamma_beta,
+            p.gamma_warmup),
     }
 
 

@@ -753,9 +753,9 @@ def _after_step(s, pop, merged, gamma, steps):
 def test_beam_segments_equal_plain_segments(cuda_device, case):
     """Each kernel against its plain version, step by step for 24 steps
     from the same seeded state: every output of a query that is active
-    bit for bit, the outputs the next segments read for every query, the
-    exact distances between them, the gamma update, and the whole state
-    after each step."""
+    bit for bit, the outputs the next segments read for every query (the
+    step counter among them), the exact distances between them, the gamma
+    update with its row sums, and the whole state after each step."""
     from cphnsw_tpu_torch.ops import estimate
     from cphnsw_tpu_torch.search import beam
 
@@ -775,6 +775,8 @@ def test_beam_segments_equal_plain_segments(cuda_device, case):
                 assert x is None and y is None, f"{what} {name}"
                 continue
             rows = slice(None) if name in every_row else act
+            if x.dim() == 0:                    # the step counter
+                rows = ()
             assert _same_bits(x[rows], y[rows]), f"{what} {name}"
 
     def exact(rows_of):
@@ -783,7 +785,6 @@ def test_beam_segments_equal_plain_segments(cuda_device, case):
 
     for step in range(24):
         _assert_same_state(s, t, f"before step {step}")
-        nxt = s.steps + 1
         pw, pk = beam._pop_plain(t, c), beam._pop(s, c)
         act = pw.active
         compare(pk, pw, act, f"pop, step {step}")
@@ -797,19 +798,16 @@ def test_beam_segments_equal_plain_segments(cuda_device, case):
         compare(xk, xw, act, f"expand, step {step}")
         ew_, ek = exact(xw.rr_node), exact(xk.rr_node)
         assert _same_bits(ek, ew_)
-        mw = beam._merge_plain(t, c, pw, dw, xw, ew_, nxt)
-        mk = beam._merge(s, c, pk, dk, xk, ek, nxt)
+        mw = beam._merge_plain(t, c, pw, dw, xw, ew_, pw.next_step)
+        mk = beam._merge(s, c, pk, dk, xk, ek, pk.next_step)
         compare(mk, mw, slice(None), f"merge, step {step}")
-        sums = [(m.ratio.sum(dim=1), (m.ratio * m.ratio).sum(dim=1))
-                for m in (mw, mk)]
-        assert all(_same_bits(a, b) for a, b in zip(*sums))
-        gw = beam._gamma_plain(t, c, pw.expand, *sums[0], mw.contrib)
-        gk = beam._gamma(s, c, pk.expand, *sums[1], mk.contrib)
+        gw = beam._gamma_plain(t, c, pw.expand, mw.ratio, mw.contrib)
+        gk = beam._gamma(s, c, pk.expand, mk.ratio, mk.contrib)
         for name, x, y in zip(("gamma_q", "ratio_sum", "ratio_sq",
                                "ratio_cnt"), gk, gw):
             assert _same_bits(x, y), f"gamma {name}, step {step}"
-        t = _after_step(t, pw, mw, gw, nxt)
-        s = _after_step(s, pk, mk, gk, nxt)
+        t = _after_step(t, pw, mw, gw, pw.next_step)
+        s = _after_step(s, pk, mk, gk, pk.next_step)
     _assert_same_state(s, t, "after 24 steps")
 
 
@@ -870,6 +868,122 @@ def test_generic_beam_segments_equal_plain_segments(cuda_device, case,
     test_beam_segments_equal_plain_segments(cuda_device, case)
     assert beam_step.expand_variant_launches["generic"] > before["generic"]
     assert beam_step.expand_variant_launches["bulk"] == before["bulk"]
+
+
+def _pop_gamma_state(device, q, beam_cap, k, rw, seed):
+    """A seeded batch for the pop and the gamma update alone: beam values
+    from a pool of four (ties) with a third of the slots FLOAT_MAX holes
+    (one row all holes), the results full in half the rows, a quarter of
+    the queries done, the step counter at 41; and the gamma update's
+    inputs: ratios of both signs over six decades with +0.0 and -0.0
+    entries (one row all -0.0), a NaN in one row, contributing flags, an
+    expanding flag per query.  Returns (state, constants, ratio, contrib,
+    expand)."""
+    from cphnsw_tpu_torch.search import beam
+
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.25, 1.0, 1.5, 4.0], np.float32)
+    est = rng.choice(pool, (q, beam_cap)).astype(np.float32)
+    est[rng.random((q, beam_cap)) < 1 / 3] = beam.FLOAT_MAX
+    est[5] = beam.FLOAT_MAX
+    res_d = np.full((q, k), beam.FLOAT_MAX, np.float32)
+    res_d[::2] = rng.choice(pool, (q // 2, k))
+    ratio = (rng.standard_normal((q, rw)) * 10.0 ** rng.integers(
+        -3, 3, (q, rw))).astype(np.float32)
+    ratio[0] = -0.0
+    ratio[1, ::3] = 0.0
+    ratio[2, ::2] = -0.0
+    ratio[3, rw // 2] = np.nan
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    s = beam.BeamState(
+        beam_ids=t(rng.integers(0, 10_000, (q, beam_cap)).astype(np.int32)),
+        beam_est=t(est), beam_lower=t(rng.choice(pool, (q, beam_cap))),
+        res_ids=None, res_d=t(res_d), visited=None,
+        gamma_q=t(rng.choice(np.float32([1.0, 1.2, 2.0]), q)),
+        ratio_sum=t(rng.random(q).astype(np.float32) * 50),
+        ratio_sq=t(rng.random(q).astype(np.float32) * 80),
+        ratio_cnt=t(rng.integers(0, 60, q).astype(np.int32)),
+        slack_cnt=t(rng.integers(0, 6, q).astype(np.int32)),
+        done=t(rng.random(q) < 0.25),
+        steps=torch.tensor(41, dtype=torch.int32, device=device),
+        last_improve=None, res_step=None)
+    params = beam.SearchParams(
+        affine_a=1.0, affine_b=0.0, ip_qo_floor=0.0,
+        slack_levels=t(np.float32([0.0, 0.5, 1.0, 2.0])), gamma=1.0,
+        gamma_max=1.5, gamma_beta=0.3, gamma_warmup=40)
+    return (s, params, t(ratio), t(rng.random((q, rw)) < 0.6),
+            t(rng.random(q) < 0.8))
+
+
+# (beam_cap, E) of the pop: the graph cell's 64 at E 4, a shard's 128 at
+# E 1, beam_cap 100 (not a multiple of 32) at E 1, 33 and 100, the
+# k = 100 beam's 400 at E 4 (past the slots a lane keeps in registers),
+# k = 250's 1,000 and k = 600's 2,400 at E 4 and 64
+POP_SHAPES = [(64, 4), (128, 1), (100, 1), (100, 33), (100, 100), (400, 4),
+              (1000, 4), (2400, 4), (2400, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_cap, ew", POP_SHAPES,
+                         ids=[f"b{b}-e{e}" for b, e in POP_SHAPES])
+def test_pop_kernel_equals_plain_pop(cuda_device, beam_cap, ew):
+    """The warp pop against _pop_plain on one seeded state with holes,
+    ties, done queries and results full or not: beam_est, done, slack_cnt,
+    active, expand, expand_e, cur_safe and the step counter bit for bit
+    for every query, pop_ids and dot_slack where the query is active."""
+    from cphnsw_tpu_torch.kernels import beam_step
+    from cphnsw_tpu_torch.search import beam
+
+    s, params, *_ = _pop_gamma_state(cuda_device, 40, beam_cap, 10, 8,
+                                     beam_cap + ew)
+    c = beam._Consts(*[None] * 8, params=params, bits=1, k=10, r=1,
+                     words=1, expand_width=ew, rw=1, h_size=0)
+    t = s._replace(beam_est=s.beam_est.clone(), done=s.done.clone(),
+                   slack_cnt=s.slack_cnt.clone())
+    want = beam._pop_plain(t, c)
+    before = beam_step.pop_launches
+    got = beam._pop(s, c)
+    assert beam_step.pop_launches == before + 1
+    act = want.active
+    assert bool(act.any()) and bool((~act).any())
+    for name in beam.Popped._fields:
+        x, y = getattr(got, name), getattr(want, name)
+        rows = act if name in ("pop_ids", "dot_slack") else slice(None)
+        if x.dim() == 0:
+            rows = ()
+        assert _same_bits(x[rows], y[rows]), name
+    assert int(got.next_step) == 42 and int(s.steps) == 41
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rw", [8, 32, 100, 128, 512])
+def test_gamma_kernel_equals_plain_gamma(cuda_device, rw):
+    """The gamma update, which sums its ratios itself, against
+    _gamma_plain's lane-order sums in torch ops on the card: gamma_q and
+    the three running terms bit for bit (rw 8 at rerank_width 8, 128 at
+    the graph cell, 100 off the warp, 512 at R = 128), with +0.0, -0.0 and
+    NaN ratios and queries that do not expand."""
+    from cphnsw_tpu_torch.kernels import beam_step
+    from cphnsw_tpu_torch.search import beam
+
+    s, params, ratio, contrib, expand = _pop_gamma_state(
+        cuda_device, 40, 64, 10, rw, rw)
+    c = beam._Consts(*[None] * 8, params=params, bits=1, k=10, r=1,
+                     words=1, expand_width=1, rw=rw, h_size=0)
+    t = s._replace(**{f: getattr(s, f).clone() for f in (
+        "gamma_q", "ratio_sum", "ratio_sq", "ratio_cnt")})
+    want = beam._gamma_plain(t, c, expand, ratio, contrib)
+    before = beam_step.gamma_launches
+    got = beam._gamma(s, c, expand, ratio, contrib)
+    assert beam_step.gamma_launches == before + 1
+    for name, x, y in zip(("gamma_q", "ratio_sum", "ratio_sq", "ratio_cnt"),
+                          got, want):
+        assert _same_bits(x, y), name
+    moved = want[0] != t.gamma_q
+    assert bool(moved.any())                # the update took effect
 
 
 # Step-by-step cases for both variants: (bits, R, expand_width,
@@ -1033,7 +1147,8 @@ def test_beam_kernels_from_global_scratch_equal_plain_step(
     plan = beam_step.launch_plan(len(queries), max(2 * r, 4 * k), k, ew, r,
                                  rw or ew * r, idx._padded, bits,
                                  idx._neighbors.words)
-    assert all(p.smem == 0 and p.workspace > 0 for p in plan)
+    assert all(p.smem == 0 and p.workspace > 0 for p in plan[1:])
+    assert plan.pop.workspace == 0          # the warp pop needs none
     scratch = search()
     monkeypatch.setattr(beam, "_step", beam._plain_step)
     plain = search()
