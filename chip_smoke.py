@@ -136,7 +136,19 @@ Phases, in order; any failed check exits non-zero:
      launches per batch (at least one); then the kernel against its plain
      version on the first search's real sketch operands, bit-equal (at
      10M on the first 64 queries of the 1024-query launch), with its ms,
-     bound and the torch._int_mm yardstick.
+     bound and the torch._int_mm yardstick; (g) the JAX package's graph
+     record (GRAPH_WORKLOADS, results/<name>_graph_results.json) on the
+     same drawn data and ground truth as its scan workload: eval.
+     bench_one_case(engine="graph") at k = 100 (NNDescent, alpha-CNG,
+     calibration and the step budget from the host store, one warm and 3
+     timed passes over the 1000 queries): recall@1/10/100 and ADR beside
+     the record's, the step budget and the steps taken, the build's
+     stages and peak, QPS, p50, the beam kernels' launches by variant,
+     the kept graph's bytes and the captures of each call (a timed call
+     that replays the kept graph captures none); then the four beam
+     kernels against the plain torch step on all 1000 queries at
+     beam_cap 400, state bit-equal after each of the first 16 steps and
+     at the end, each segment timed as in 8c, and one profiled batch.
 The graph path's step runs
 four hand-written kernels (kernels/beam_step.py; the JAX package's Pallas
 beam-step kernel was retired before the port, so they replace its XLA
@@ -164,7 +176,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cphnsw_tpu_torch import CPIndex, ScanIndex
+from cphnsw_tpu_torch import CPIndex, Index, ScanIndex
 from cphnsw_tpu_torch.graph import nndescent
 from cphnsw_tpu_torch.kernels import beam_step, nvcc, scan_keys
 from cphnsw_tpu_torch.ops import hadamard, pack, quantize, rounding, threefry
@@ -233,6 +245,10 @@ WORKLOADS = [
     ("synthetic-10m-96d", (100, 10), (1,)),
 ]
 WORKLOAD_RUNS = 3
+# Phase 12g: the JAX package's graph records, run on the data of the scan
+# workload of the same name (results/<name>_graph_results.json); (name,
+# k, bit width).
+GRAPH_WORKLOADS = [("synthetic-1m-128d", 100, 1)]
 # A recall@10 more than this below the JAX package's record is flagged.
 RECORD_GAP = 0.005
 # The K step of an int8 wgmma: a launch's operations are counted over the
@@ -613,21 +629,22 @@ def graph_drive(name, data, bits, card):
     return idx, queries, ids, p50
 
 
-def beam_steps(g, queries):
+def beam_steps(g, queries, k=K):
     """(loop steps, ms per step) of one beam search over `queries`, timed
     with CUDA events."""
     q_dev = torch.from_numpy(queries).cuda()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    _, _, state = g._beam(q_dev, g._entry_candidates, K, g._max_steps(K),
+    _, _, state = g._beam(q_dev, g._entry_candidates, k, g._max_steps(k),
                           debug_state=True)
     end.record()
     torch.cuda.synchronize()
     return state.steps, start.elapsed_time(end) / max(state.steps, 1)
 
 
-def profile_graph_batch(g, queries, p50, card):
+def profile_graph_batch(g, queries, p50, card, k=K,
+                        label="[8] profile of one warm 1M graph batch"):
     """torch.profiler over one warm search_batch: device-busy time (the
     union of kernel intervals) as a share of the profiled wall time and of
     the unprofiled p50 batch latency, the five kernels with the most
@@ -636,11 +653,11 @@ def profile_graph_batch(g, queries, p50, card):
     launches in the batch."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps, _ = beam_steps(g, queries)
+    steps, _ = beam_steps(g, queries, k)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        g.search_batch(queries, k=K)
+        g.search_batch(queries, k=k)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -673,7 +690,7 @@ def profile_graph_batch(g, queries, p50, card):
                                                     e_name)))
                for name in ("beam_pop", "beam_expand", "beam_merge",
                             "beam_gamma")}
-    log(f"[8] profile of one warm 1M graph batch (Q={len(queries)}): device "
+    log(f"{label} (Q={len(queries)}, k={k}): device "
         f"busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.1f}% of the "
         f"{wall_us / 1e3:.2f} ms profiled wall, "
         f"{100 * busy / (p50 * 1e6):.1f}% of the {p50 * 1e3:.2f} ms "
@@ -1058,6 +1075,71 @@ def shard_beam_start(idx, queries, k):
         1, 0, 0)
 
 
+def segment_times(clocks: dict) -> tuple[dict, dict]:
+    """(median, mean) over the steps of each segment's ms per step, by
+    route, from SegmentClocks.  The median of the steps is each kernel's
+    ms: a host stall longer than the spins before a segment lands in that
+    segment's span, and one such step moves the mean of a few hundred by
+    tenths of a ms."""
+    seg = {route: clock.segment_ms() for route, clock in clocks.items()}
+    mean = {route: {name: statistics.fmean(t[name] for t in times)
+                    for name in times[0]} for route, times in seg.items()}
+    median = {route: {name: statistics.median(t[name] for t in times)
+                      for name in times[0]} for route, times in seg.items()}
+    return median, mean
+
+
+def beam_step_bytes(g, k, q, counts) -> dict:
+    """Each beam kernel's bytes a step (beam_kernel_bytes), the mean over
+    the steps beam_equal_drive counted (counts), on Index g's beam at k
+    over q queries (beam_cap max(2R, 4k), rerank every candidate)."""
+    r, ew = g._r, g._expand_width
+    row = (5 + g._bits * g._neighbors.words) * r * 4
+    dims = (max(2 * r, 4 * k), k, ew, ew * r, ew * r, g._raw.shape[1], row,
+            4 if g._visited_hash_bits() else 1)
+    per_step = [beam_kernel_bytes(q, *n, dims) for n in counts]
+    return {name: statistics.fmean(b[name] for b in per_step)
+            for name in BEAM_KERNELS}
+
+
+def log_segment_times(label, median, mean, steps, card, note=""):
+    """One line per route: each segment's ms per step, median (mean) of
+    the steps, and the step's sum."""
+    for route in median:
+        log(f"  {label}{route}: ms per step, median (mean) of {steps} "
+            f"steps: "
+            + ", ".join(f"{name} {ms:.4f} ({mean[route][name]:.4f})"
+                        for name, ms in median[route].items())
+            + f"; step {sum(median[route].values()):.4f} "
+            f"({sum(mean[route].values()):.4f}) ms (device time of the "
+            f"segments, CUDA events)"
+            + (note if route == "generic" else "") + f" [{card}]")
+
+
+def beam_kernel_row(kernel, segment, nbytes, median, mean, profiled, steps,
+                    card, note="") -> dict:
+    """A beam kernel's numbers at one shape: its ms per launch (the median
+    of the steps' kernel segment) beside the plain segment's, its bound
+    from the bytes a step needs (nbytes) and roofline share, and its
+    launches and ms per launch in a profiled batch (profiled); logged."""
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = median["kernels"][segment]
+    row = dict(ms=ms, mean_ms=mean["kernels"][segment],
+               plain_ms=median["plain"][segment], bound_ms=bound_ms,
+               bound_by="bytes", roofline_share=bound_ms / ms,
+               bytes_per_launch=nbytes,
+               launches_per_batch=profiled["launches"],
+               profiled_ms_per_launch=profiled["ms"] / max(
+                   profiled["launches"], 1))
+    log(f"  {kernel}: {ms:.4f} ms per launch (median of {steps} steps; mean "
+        f"{row['mean_ms']:.4f}), plain segment {row['plain_ms']:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({nbytes / 1e6:.3f} MB a step, bytes), "
+        f"roofline share {bound_ms / ms:.4f}{note}; profiled batch "
+        f"{profiled['launches']} launches at "
+        f"{row['profiled_ms_per_launch']:.4f} ms [{card}]")
+    return row
+
+
 def beam_kernel_drive(g, queries, card, prof):
     """Phase 8c: beam_equal_drive on the 1M graph index (the search's own
     arguments), with ms per step of each segment on both paths (CUDA
@@ -1070,8 +1152,7 @@ def beam_kernel_drive(g, queries, card, prof):
     and the gamma update have no generic variant (their generic_ms is
     None).  Returns the kernels' entries for the kernels line."""
     q_dev = torch.from_numpy(queries).cuda()
-    k, r, ew = K, g._r, g._expand_width
-    hash_bits = g._visited_hash_bits()
+    k = K
     start = index_beam_start(g, q_dev, k)
     clocks = {route: SegmentClock(c) for route, c in SEGMENT_SLEEP.items()}
     res, counts = beam_equal_drive("8c", start, g._max_steps(k), card,
@@ -1085,19 +1166,8 @@ def beam_kernel_drive(g, queries, card, prof):
     finally:
         beam_step.GENERIC_ONLY = False
     steps = len(counts)
-    seg = {route: clock.segment_ms() for route, clock in clocks.items()}
-    # the median of the steps is each kernel's ms: a host stall longer
-    # than the spins before a segment lands in that segment's span, and
-    # one such step moves the mean of a few hundred by tenths of a ms
-    mean = {route: {name: statistics.fmean(t[name] for t in times)
-                    for name in times[0]} for route, times in seg.items()}
-    median = {route: {name: statistics.median(t[name] for t in times)
-                      for name in times[0]} for route, times in seg.items()}
-    q = len(queries)
-    row = (5 + g._bits * g._neighbors.words) * r * 4
-    dims = (max(2 * r, 4 * k), k, ew, ew * r, ew * r, g._raw.shape[1], row,
-            4 if hash_bits else 1)
-    per_step = [beam_kernel_bytes(q, *n, dims) for n in counts]
+    median, mean = segment_times(clocks)
+    step_bytes = beam_step_bytes(g, k, len(queries), counts)
     res.update(active_per_step=[a for _, a, _ in counts],
                segment_ms_per_step=median, segment_mean_ms_per_step=mean,
                step_ms={route: sum(m.values())
@@ -1105,54 +1175,33 @@ def beam_kernel_drive(g, queries, card, prof):
                step_mean_ms={route: sum(m.values())
                              for route, m in mean.items()},
                device_ops_per_step=prof["device_ops_per_step"])
-    for route in ("kernels", "generic", "plain"):
-        log(f"  {route}: ms per step, median (mean) of {steps} steps: "
-            + ", ".join(f"{name} {ms:.4f} ({mean[route][name]:.4f})"
-                        for name, ms in median[route].items())
-            + f"; step {res['step_ms'][route]:.4f} "
-            f"({res['step_mean_ms'][route]:.4f}) ms (device time of the "
-            f"segments, CUDA events)"
-            + (" (generic expansion and merge; the pop and the gamma update "
-               "have no generic variant)" if route == "generic" else "")
-            + f" [{card}]")
+    log_segment_times("", median, mean, steps, card,
+                      " (generic expansion and merge; the pop and the gamma "
+                      "update have no generic variant)")
     log(f"  device ops a step in phase 8's profiled batch "
         f"{prof['device_ops_per_step']:.1f} ({prof['steps']} steps); beam "
         f"kernels there {json.dumps(prof['beam'])} [{card}]")
     entries = []
     for name, segment in zip(BEAM_KERNELS, ("pop", "expand", "merge",
                                             "gamma")):
-        nbytes = statistics.fmean(b[name] for b in per_step)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ms, plain_ms = median["kernels"][segment], median["plain"][segment]
+        bound_ms = step_bytes[name] / HBM_BYTES_PER_S * 1e3
         generic_ms = (median["generic"][segment] if name in GENERIC_VARIANTS
                       else None)
         generic = ("no generic variant" if generic_ms is None else
                    f"generic kernel {generic_ms:.4f} ms, roofline share "
                    f"{bound_ms / generic_ms:.4f}")
-        profiled = prof["beam"][name]
+        row = beam_kernel_row(name, segment, step_bytes[name], median, mean,
+                              prof["beam"][name], steps, card,
+                              f" ({generic})")
         entries.append(dict(
             name=name, route="cuda",
             source="cphnsw_tpu_torch/csrc/beam_step.cu",
             replaces="cphnsw_tpu/search/beam.py:244",
             max_abs_err=max(res["max_abs_err"],
                             res["generic"]["max_abs_err"]),
-            ms=ms, mean_ms=mean["kernels"][segment], plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by="bytes",
-            library_ms=None, roofline_share=bound_ms / ms,
-            generic_ms=generic_ms,
+            library_ms=None, generic_ms=generic_ms,
             generic_roofline_share=None if generic_ms is None
-            else bound_ms / generic_ms,
-            bytes_per_launch=nbytes,
-            launches_per_batch=profiled["launches"],
-            profiled_ms_per_launch=profiled["ms"] / max(
-                profiled["launches"], 1)))
-        log(f"  {name}: {ms:.4f} ms per launch (median of {steps} steps; "
-            f"mean {mean['kernels'][segment]:.4f}), "
-            f"plain segment {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-            f"({nbytes / 1e6:.3f} MB a step, bytes), roofline share "
-            f"{bound_ms / ms:.4f} ({generic}); "
-            f"profiled batch {profiled['launches']} launches at "
-            f"{entries[-1]['profiled_ms_per_launch']:.4f} ms [{card}]")
+            else bound_ms / generic_ms, **row))
     if min(p["launches"] for p in prof["beam"].values()) <= 0:
         fail(f"the profiled graph batch ran no beam kernel: {prof['beam']}")
     return entries, res
@@ -1474,10 +1523,13 @@ def cli_drive(card):
     for e in events:
         log(f"  {json.dumps(e)}")
     case = report["results"][0]
+    jax_case = jax_record(CLI_DATASET).get(case["algorithm"], {})
     log(f"  CLI subprocess {secs:.1f} s; results file: build_time_s "
         f"{case['build_time_s']}, recall@10 {case['recall_at_10']}, "
-        f"recall@100 {case['recall_at_100']}, qps {case['qps']}, device "
-        f"{report['metadata']['device']} [{card}]")
+        f"recall@100 {case['recall_at_100']} (JAX record "
+        f"{jax_case.get('recall_at_10')} / {jax_case.get('recall_at_100')}),"
+        f" qps {case['qps']}, device {report['metadata']['device']} "
+        f"[{card}]")
     if [e["event"] for e in events] != ["benchmark_start", "summary"] or \
             not {"dataset", "algorithm", "build_time_min", "memory_gib",
                  "recall_at_10", "qps"} <= set(summaries[0]):
@@ -2139,32 +2191,58 @@ class BuildSpy:
         CPIndex.finalize, scan.fused_scan_keys = self._real
 
 
-def jax_record(name) -> dict:
+def record_path(name, engine="auto") -> Path:
+    """The JAX package's results file of a workload, named as its
+    run_benchmark names it: suffixed _<engine> when the engine is forced."""
+    suffix = "" if engine == "auto" else f"_{engine}"
+    return Path(__file__).resolve().parent / "results" / \
+        f"{name}{suffix}_results.json"
+
+
+def jax_record(name, engine="auto") -> dict:
     """The JAX package's results file of a workload: {algorithm: case}."""
-    path = Path(__file__).resolve().parent / "results" / \
-        f"{name}_results.json"
-    return {c["algorithm"]: c
-            for c in json.loads(path.read_text())["results"]}
+    return {c["algorithm"]: c for c in json.loads(
+        record_path(name, engine).read_text())["results"]}
 
 
-def workload_drive(name, ks, bits_list, card, results):
-    """Phase 12, one workload: the data as run_benchmark draws it, then per
-    bit width eval.bench_one_case at ks[0] (the build, one warm and
-    WORKLOAD_RUNS timed passes), further timed passes at ks[1:] on the same
-    index, and the kernel against its plain version on the first search's
-    real sketch operands (once per workload: the sketch does not depend on
-    the bit width)."""
+def recorded_runs() -> list[tuple[str, str, str]]:
+    """(phase, dataset, engine) of every JAX record a phase reads through
+    jax_record: phase 11's CLI run, phase 12's scan workloads and its
+    graph records."""
+    return ([("11", CLI_DATASET, "auto")]
+            + [("12", name, "auto") for name, _, _ in WORKLOADS]
+            + [("12g", name, "graph") for name, _, _ in GRAPH_WORKLOADS])
+
+
+def workload_data(name) -> dict:
+    """A workload's data as run_benchmark draws it: the card's Threefry
+    recipe (make_synthetic's default at this size), ground truth on the
+    card, no cache."""
     n, dim, metric = synthetic_shape(name)
-    record = jax_record(name)
     t0 = time.perf_counter()
     data = make_synthetic(name, cache_dir=None)     # the card, by default
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
     if "base_dev_factory" not in data:
         fail(f"{name}: the store was not drawn on the card")
+    log(f"  {name}: {n} x {dim}d {metric}, {len(data['queries'])} queries "
+        f"drawn on the card with ground truth@"
+        f"{data['groundtruth'].shape[1]} in {data_s:.2f} s")
+    return data
+
+
+def workload_drive(name, ks, bits_list, card, results, data=None):
+    """Phase 12, one workload: its data (workload_data, drawn here unless
+    given), then per bit width eval.bench_one_case at ks[0] (the build,
+    one warm and WORKLOAD_RUNS timed passes), further timed passes at
+    ks[1:] on the same index, and the kernel against its plain version on
+    the first search's real sketch operands (once per workload: the sketch
+    does not depend on the bit width)."""
+    n, dim, metric = synthetic_shape(name)
+    record = jax_record(name)
+    if data is None:
+        data = workload_data(name)
     queries, truth = data["queries"], data["groundtruth"].astype(np.int64)
-    log(f"  {name}: {n} x {dim}d {metric}, {len(queries)} queries drawn on "
-        f"the card with ground truth@{truth.shape[1]} in {data_s:.2f} s")
     out = {}
     checked = False
     for bits in bits_list:
@@ -2241,6 +2319,167 @@ def workload_drive(name, ks, bits_list, card, results):
         del spy, idx
         torch.cuda.empty_cache()
     return out
+
+
+class SearchSpy:
+    """Inside a `with` block: for each Index.search_batch call, the CUDA
+    graphs the beam captured in it (beam._graphed calls), its host seconds
+    and the bytes the kept graphs hold after it (`calls`); `captures`
+    counts every capture, the step budget's in finalize too."""
+
+    def __enter__(self):
+        self.calls, self.captures = [], 0
+        self._real = (beam._graphed, Index.search_batch)
+        graphed, search = self._real
+
+        def counted(fn, stream):
+            self.captures += 1
+            return graphed(fn, stream)
+
+        def searched(idx, *args, **kw):
+            n0, t0 = self.captures, time.perf_counter()
+            out = search(idx, *args, **kw)
+            self.calls.append(dict(captures=self.captures - n0,
+                                   seconds=time.perf_counter() - t0,
+                                   kept_bytes=beam.kept_bytes()))
+            return out
+
+        beam._graphed, Index.search_batch = counted, searched
+        return self
+
+    def __exit__(self, *exc):
+        beam._graphed, Index.search_batch = self._real
+
+
+def graph_workload_drive(name, k, bits, data, card):
+    """Phase 12g, one graph record: eval.bench_one_case(engine="graph") at
+    k on the data and ground truth its scan workload drew (the graph
+    engine builds from the host store, its upload counted in the build,
+    as run_benchmark does), with the beam kernels' launches in it (the
+    counters set to 0 just before) and each search call's captures and
+    kept bytes; then the beam kernels against the plain step on the
+    record's index over all its queries at the search's own shape, each
+    segment timed as in 8c, and one profiled batch.  Returns (the drive's
+    numbers, its beam launches for the kernels line, each beam kernel's
+    row at this shape)."""
+    _, dim, metric = synthetic_shape(name)
+    label = f"{name} graph {bits}-bit"
+    jax_case = jax_record(name, "graph").get(f"cphnsw-tpu-{bits}bit", {})
+    queries, truth = data["queries"], data["groundtruth"].astype(np.int64)
+    q = len(queries)
+    log(f"  {label}: the beam's kept graphs hold {beam.kept_bytes()} B "
+        f"before the build [{card}]")
+    zero_beam_launches()
+    with BuildSpy() as spy, SearchSpy() as searches:
+        case = bench_one_case(data["base"], queries, truth, dim=dim,
+                              bits=bits, k=k, n_runs=WORKLOAD_RUNS,
+                              engine="graph", metric=metric, device="cuda")
+    launches = beam_path_launches(f"{label} record", beam_launches(),
+                                  beam_variant_launches())
+    g = spy.index._index
+    beam_cap, ew, r = max(2 * g._r, 4 * k), g._expand_width, g._r
+    plan = beam_step.launch_plan(q, beam_cap, k, ew, r, ew * r,
+                                 g._raw.shape[1], g._bits,
+                                 g._neighbors.words)
+    generic = {kern: v["generic"] for kern, v in launches["variants"].items()
+               if v["generic"]}
+    if generic:
+        log(f"  {label}: FINDING: generic launches {generic} at this shape "
+            f"(its launch plan {plan}): a shape of the build's step budget "
+            f"or of the search that the Hopper variants do not take")
+    calls = searches.calls
+    captures = [c["captures"] for c in calls]
+    replayed = len(calls) == WORKLOAD_RUNS + 1 and not any(captures[1:])
+    kept = beam.kept_bytes()
+    hash_bits = g._visited_hash_bits()
+    visited_bytes = q * 4 * ((1 << hash_bits) + 1) if hash_bits else \
+        q * (g._n + 1)
+    p50_ms = case.median_latency_us * q / 1e3
+    log(f"  {label}: build {case.build_time_s} s, stages "
+        f"{json.dumps(case.build_stages_s)}, build peak device memory "
+        f"{spy.peak_gib:.4f} GiB [{card}]")
+    log(f"  {label}: k={k} recall@1/10/100 {case.recall_at_1} / "
+        f"{case.recall_at_10} / {case.recall_at_100}, ADR {case.adr} (JAX "
+        f"record {jax_case.get('recall_at_1')} / "
+        f"{jax_case.get('recall_at_10')} / {jax_case.get('recall_at_100')},"
+        f" ADR {jax_case.get('adr')}); QPS {case.qps}, p50 batch "
+        f"{p50_ms:.2f} ms (median of {WORKLOAD_RUNS}, Q={q}; host seconds "
+        f"of the warm and timed calls "
+        f"{[round(c['seconds'], 4) for c in calls]}) [{card}]")
+    log(f"  {label}: step budget {g._step_budget}, _max_steps({k}) "
+        f"{g._max_steps(k)}; beam_cap {beam_cap}, E {ew}, R {r}, sub-batch "
+        f"{g._sub_batch()} queries, visited "
+        f"{'hash 2^%d slots' % hash_bits if hash_bits else 'dense'} "
+        f"({visited_bytes / 2**30:.4f} GiB for the {q} queries)")
+    log(f"  {label}: captures per search call (warm, then timed) "
+        f"{captures}, {searches.captures - sum(captures)} in the build's "
+        f"step budget; the timed calls replayed the kept graph without a "
+        f"capture: {replayed}; kept graphs hold {kept / 2**30:.4f} GiB "
+        f"after them (at most {beam.KEPT_BYTES_PER_DEVICE / 2**30:g}; after "
+        f"each call {[c['kept_bytes'] for c in calls]} B) [{card}]")
+    if not replayed:
+        log(f"  {label}: the kept entry of a {q}-query call does not stay "
+            f"within the budget: every call pays a capture")
+    if case.recall_at_10 < GRAPH_MIN_RECALL or not np.isfinite(case.adr):
+        fail(f"{label}: recall@10 {case.recall_at_10} < {GRAPH_MIN_RECALL} "
+             f"or ADR {case.adr}")
+    gap = jax_case.get("recall_at_10", 0) - case.recall_at_10
+    if gap > RECORD_GAP:
+        log(f"  {label}: recall@10 {gap:.4f} below the JAX record, more "
+            f"than {RECORD_GAP}: a possible fault of the port against the "
+            f"reference")
+
+    # the four beam kernels against the plain step at the record's shape
+    q_dev = torch.from_numpy(queries).cuda()
+    clocks = {route: SegmentClock(c) for route, c in SEGMENT_SLEEP.items()}
+    t0 = time.perf_counter()
+    res, counts = beam_equal_drive("12g", index_beam_start(g, q_dev, k),
+                                   g._max_steps(k), card, clocks)
+    equal_s = time.perf_counter() - t0
+    del q_dev
+    never_done = 0 if res["finished"] else counts[-1][1]
+    mean_steps = sum(q - d for d, _, _ in counts) / q
+    median, mean = segment_times(clocks)
+    step_bytes = beam_step_bytes(g, k, q, counts)
+    prof = profile_graph_batch(
+        g, queries, p50_ms / 1e3, card, k=k,
+        label=f"  [12g] profile of one warm {name} graph batch")
+    log(f"  {label}: steps per query mean {mean_steps:.2f}, max "
+        f"{res['steps']} ({never_done} queries still searching at the "
+        f"budget); the search's loop ran {prof['steps']} steps (chunks of "
+        f"{beam.DONE_CHECK_EVERY}); the step-by-step comparison took "
+        f"{equal_s:.1f} s with the spins of its segment clocks [{card}]")
+    log_segment_times(f"{label} ", median, mean, len(counts), card)
+    variants = dict(pop="warp", expand=plan.expand.variant,
+                    merge=plan.merge.variant, gamma="warp")
+    rows = {kern: dict(beam_kernel_row(
+        f"{kern} at the record's shape ({variants[seg]})", seg,
+        step_bytes[kern], median, mean, prof["beam"][kern], len(counts),
+        card), variant=variants[seg], max_abs_err=res["max_abs_err"])
+        for kern, seg in zip(BEAM_KERNELS, ("pop", "expand", "merge",
+                                            "gamma"))}
+    if min(p["launches"] for p in prof["beam"].values()) <= 0:
+        fail(f"{label}: the profiled batch ran no beam kernel: "
+             f"{prof['beam']}")
+    out = dict(
+        build_s=case.build_time_s, build_stages_s=case.build_stages_s,
+        build_peak_gib=spy.peak_gib, recall_at_1=case.recall_at_1,
+        recall_at_10=case.recall_at_10, recall_at_100=case.recall_at_100,
+        adr=case.adr, jax_recall_at_1=jax_case.get("recall_at_1"),
+        jax_recall_at_10=jax_case.get("recall_at_10"),
+        jax_recall_at_100=jax_case.get("recall_at_100"),
+        jax_adr=jax_case.get("adr"), qps=case.qps, p50_ms=p50_ms,
+        call_seconds=[c["seconds"] for c in calls],
+        step_budget=g._step_budget, max_steps=g._max_steps(k),
+        loop_steps=prof["steps"], mean_steps=mean_steps,
+        max_query_steps=res["steps"], never_done=never_done,
+        captures=captures, replayed=replayed, kept_bytes=kept,
+        visited_bytes=visited_bytes, sub_batch=g._sub_batch(),
+        equal=res, equal_s=equal_s,
+        step_ms={route: sum(m.values()) for route, m in median.items()},
+        segment_ms_per_step=median, device_busy_ms=prof["busy_ms"],
+        device_ops_per_step=prof["device_ops_per_step"])
+    return out, launches, rows
 
 
 def main():
@@ -2473,14 +2712,28 @@ def main():
         f"{CLI_DATASET}")
     cli_drive(card)
 
-    # 12. the JAX package's recorded scan workloads
-    log(f"[12] the JAX package's recorded scan workloads, "
+    # 12. the JAX package's recorded workloads: the scan ones, and (12g)
+    # each graph record on the data its scan workload drew
+    log(f"[12] the JAX package's recorded workloads, "
         f"{time.perf_counter() - t_start:.1f} s since start")
-    workloads = {}
+    workloads, graph_records, record_rows = {}, {}, {}
     for name, ks, bits_list in WORKLOADS:
         t0 = time.perf_counter()
-        workloads[name] = workload_drive(name, ks, bits_list, card, results)
+        data = workload_data(name)
+        workloads[name] = workload_drive(name, ks, bits_list, card, results,
+                                         data)
         log(f"  {name}: phase 12 drive {time.perf_counter() - t0:.1f} s")
+        for g_name, g_k, g_bits in GRAPH_WORKLOADS:
+            if g_name != name:
+                continue
+            t0 = time.perf_counter()
+            (graph_records[name], beam_by_path[f"graph_record {name}"],
+             record_rows[name]) = graph_workload_drive(name, g_k, g_bits,
+                                                       data, card)
+            log(f"  {name}: phase 12g drive {time.perf_counter() - t0:.1f} "
+                f"s")
+        del data
+        torch.cuda.empty_cache()
 
     sk = results[0]
     kernels = [dict(
@@ -2516,6 +2769,8 @@ def main():
                 path: n["variants"][name]
                 for path, n in beam_by_path.items()}}
                if name in beam_by_path["graph"]["variants"] else {}),
+            graph_record={rec: rows[name]
+                          for rec, rows in record_rows.items()},
             build_s=beam_build_s,
             ptxas=[r for r in beam_ptxas
                    if r["kernel"].startswith(name + "_")]))
@@ -2524,6 +2779,7 @@ def main():
         f"10c: "
         f"{json.dumps(phases)}")
     log(f"phase 12: {json.dumps(workloads)}")
+    log(f"phase 12g: {json.dumps(graph_records)}")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
